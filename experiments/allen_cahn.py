@@ -49,13 +49,9 @@ def main():
                "--radius": dict(type=float, default=7.0),
                "--dk": dict(action="store_true",
                             help="layout='dk' + rng_impl='rbg' (the "
-                                 "round-4 stopped-rollout engine). "
-                                 "Measured: a WIN on the elliptic d=50 "
-                                 "config (1.3-2x) but a 2x LOSS on this "
-                                 "Allen-Cahn config (d=100, K=200, "
-                                 "relu^2 DenseNet [110,110,50]: 0.9 -> "
-                                 "1.8 ms/iter; values identical) — "
-                                 "config-dependent, see RESULTS.md"),
+                                 "transposed stopped-rollout engine; "
+                                 "same values, speed not measured on "
+                                 "the GPU)"),
                "--steps-per-call": dict(type=int, default=100)})
     d = 100
     p = AllenCahn(d=d, T=0.3)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """BASELINE.json 'configs' — the rebuild-scale targets (no reference run).
 
-BASELINE.json lists five target configurations for the TPU rebuild.
+BASELINE.json lists five target configurations for the rebuild.
 Config 1 is covered by existing experiments (ou_linear_costs /
 ou_quadratic_costs_linear_ansatz, the d=10 closed-form check); this
 script runs the other four:
@@ -18,8 +18,8 @@ script runs the other four:
               detach_forward=False) AND log-variance, validated against
               the Riccati feedback control (problems.py:140-171).
   --config 5  d=1000 HJB long-horizon (T=2, N=200), 10^5-path ensemble.
-              On this host a single chip runs the full ensemble
-              (layout='dk' + rng_impl='rbg'); the dp sharding of this
+              One card runs the full ensemble (layout='dk' +
+              rng_impl='rbg', sqrt-schedule remat); the dp sharding of this
               exact training step over a mesh is exercised by
               __graft_entry__.dryrun_multichip and
               tests/test_chunked_and_sharding.py — the step contains a
@@ -143,7 +143,7 @@ def config_4(args):
     # with relative entropy + full backprop; the tanh-skip DenseNet leg
     # is kept as the generic-ansatz comparison.)
     #
-    # Metric note (measured round 4, RESULTS.md): the training-loop
+    # Metric note (measured round 4): the training-loop
     # u_L2 follows the reference's semantics (solver.py:491-494: u_true
     # evaluated at the post-step state) and has an O(sqrt(dt)) floor of
     # rel 0.165 at dt=0.01 — the EXACT control reads 0.165 under it.
@@ -242,20 +242,13 @@ def config_5(args):
         delta_t=dt, K=K, time_approx="inner",
         loss_method="log-variance", detach_forward=True, learn_Y_0=True,
         adaptive_forward_process=True, layout="dk", rng_impl="rbg",
-        # round 4: the u_tab row-table fix unlocked the fused training
-        # kernel at d=1000 (tile 384, unroll 2): 26.7M path-steps/s at
-        # K=1e5 vs the r3 dk+rbg scan's 8.6M (proto_fused_d1000.py),
-        # and fused_rng='binom' (moment-matched popcount noise,
-        # kernels.py) lifts it to 49.6M; off-TPU (and in --smoke CPU
-        # runs) it falls back to the scan
-        rollout_mode="fused_train", fused_rng="binom",
         remat=True, early_stopping_time=None, steps_per_call=1,
         print_every=max(L // 20, 1))
-    # memory note (measured round 3): at (N, d, K) = (200, 1000, 1e5)
-    # the plain remat scan's stored carry stack is N*d*K = 80 GB f32
-    # (40 GB after XLA's bf16 carry compression) and the compile OOMs
-    # a 16 GB v5e; rollout/sde.py:_remat_scan engages its sqrt-schedule
-    # scan-of-scans on a carry-bytes estimate, storing ~sqrt(N) carries
+    # memory note: at (N, d, K) = (200, 1000, 1e5) the plain remat
+    # scan's stored carry stack is N*d*K = 80 GB f32, more than one card
+    # holds; rollout/sde.py:_remat_scan engages its sqrt-schedule
+    # scan-of-scans on a carry-bytes estimate against the device's
+    # memory limit, storing ~sqrt(N) carries
     t0 = time.time()
     s.train()
     wall = time.time() - t0

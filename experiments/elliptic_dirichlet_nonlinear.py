@@ -42,10 +42,9 @@ def main():
                              "--anneal": dict(action="store_true"),
                              "--dk": dict(action="store_true",
                                           help="layout='dk' + "
-                                               "rng_impl='rbg' (round-4 "
-                                               "stopped-rollout engine; "
-                                               "lane-occupancy-dependent "
-                                               "— see RESULTS.md)"),
+                                               "rng_impl='rbg' (the "
+                                               "transposed stopped-"
+                                               "rollout engine)"),
                              "--steps-per-call": dict(type=int, default=200)})
     d = 50
     p = ExponentialOnBallNonlinearSin(d=d, alpha=1.0)

@@ -1,6 +1,6 @@
-"""pspde — TPU-native path-space PDE solver framework.
+"""pspde — path-space PDE solver framework in JAX.
 
-A brand-new JAX/Flax/optax rebuild of the capabilities of
+A JAX/optax rebuild of the capabilities of
 lorenzrichter/path-space-PDE-solver: high-dimensional parabolic and
 elliptic PDEs (HJB, BSDE-type, eigenvalue, committor) solved via
 path-space variational formulations over Euler-Maruyama trajectory

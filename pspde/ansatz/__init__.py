@@ -1,7 +1,7 @@
 from .nets import (Affine, BatchNormMLP, ConstantVector, DenseNet,
                    DenseNetRelu, DenseNetTanh, DenseNetTanh2, LinearLQ,
-                   LinearLQTime,
-                   ReluMLP1d, ScalarParam, Sines, TanhMLP)
+                   LinearLQTime, Module, ReluMLP1d, ScalarParam, Sines,
+                   TanhMLP)
 
 # Reference-name aliases (function_space.py class names)
 SingleParam = ScalarParam
@@ -16,7 +16,8 @@ DenseNet_tanh_2 = DenseNetTanh2
 __all__ = [
     "Affine", "BatchNormMLP", "ConstantVector", "DenseNet", "DenseNetRelu",
     "DenseNetTanh",
-    "DenseNetTanh2", "LinearLQ", "LinearLQTime", "ReluMLP1d", "ScalarParam", "Sines",
+    "DenseNetTanh2", "LinearLQ", "LinearLQTime", "Module", "ReluMLP1d",
+    "ScalarParam", "Sines",
     "TanhMLP", "SingleParam", "Constant", "Linear", "NN", "NN_Nik",
     "MySequential", "DenseNet_tanh", "DenseNet_tanh_2",
 ]

@@ -1,10 +1,9 @@
-"""Function-space (ansatz) library in Flax.
+"""Function-space (ansatz) library as plain JAX modules.
 
 Rebuilds every approximator class of the reference's ``function_space.py``
-plus the notebook-local variants, as pure Flax modules (single optax
-optimizer over the combined param PyTree replaces the reference's
-per-module Adam; cf. function_space.py:18,104,131,150,168,185 and
-solver.py:194-200):
+plus the notebook-local variants (single optax optimizer over the combined
+param PyTree replaces the reference's per-module Adam; cf.
+function_space.py:18,104,131,150,168,185 and solver.py:194-200):
 
   * ``DenseNet``       — function_space.py:116-140: concat-skip MLP with
                          relu(Wx+b)^2 hidden features, weights 0.1*randn,
@@ -26,24 +25,88 @@ solver.py:194-200):
   * ``ConstantVector`` — ``Constant``, function_space.py:24-34.
   * ``LinearLQ``       — ``Linear``, function_space.py:37-48.
   * ``Affine``         — function_space.py:51-63.
+
+Calling convention (every solver and evaluator relies on it):
+``net.init(key, x) -> {"params": tree}`` and ``net.apply(variables, x)``.
+A module is a frozen dataclass of hyperparameters; the parameter tree is
+plain nested dicts.  Dense layers are named ``Dense_<i>`` in call order and
+hold ``kernel`` (d_in, d_out) and ``bias`` (d_out,), which is the layout
+ansatz/transposed.py and the tp-sharding helper index by name.  Unlabelled
+dense layers use LeCun-normal kernels (truncated normal, fan-in scaled)
+and zero biases.  A custom ansatz subclasses :class:`Module` and defines
+``_init(key, x) -> params`` and ``_apply(params, x)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+from jax import lax
+from jax.nn import initializers as init
+
+_module = dataclasses.dataclass(frozen=True)
+
+
+class Module:
+    """Base of the ansatz modules: ``init`` / ``apply`` around the
+    subclass's ``_init(key, x) -> params`` and ``_apply(params, x)``."""
+
+    def init(self, key, x):
+        return {"params": self._init(key, jnp.asarray(x))}
+
+    def apply(self, variables, x):
+        return self._apply(variables["params"], x)
+
+    def _init(self, key, x):
+        raise NotImplementedError
+
+    def _apply(self, params, x):
+        raise NotImplementedError
 
 
 def _scaled_normal(scale):
-    def init(key, shape, dtype=jnp.float32):
+    def fn(key, shape, dtype=jnp.float32):
         return scale * jax.random.normal(key, shape, dtype)
-    return init
+    return fn
 
 
-class DenseNet(nn.Module):
+def _dense_params(key, d_in, d_out, kernel_init=init.lecun_normal(),
+                  bias_init=init.zeros, use_bias=True):
+    k_w, k_b = jax.random.split(key)
+    p = {"kernel": kernel_init(k_w, (d_in, d_out), jnp.float32)}
+    if use_bias:
+        p["bias"] = bias_init(k_b, (d_out,), jnp.float32)
+    return p
+
+
+def _dense(p, x, dtype=None):
+    """Affine layer x @ kernel + bias.  Inputs and parameters are cast to
+    ``dtype`` (default: their common type), so a bf16 ``dtype`` runs the
+    matmul in bf16 while the stored parameters stay f32."""
+    kernel, bias = p["kernel"], p.get("bias")
+    if dtype is None:
+        dtype = jnp.result_type(x, kernel, *([] if bias is None else [bias]))
+    y = lax.dot_general(x.astype(dtype), kernel.astype(dtype),
+                        (((x.ndim - 1,), (0,)), ((), ())))
+    if bias is not None:
+        y = y + bias.astype(dtype)
+    return y
+
+
+def _skip_widths(d_in, arch):
+    """Input widths of the layers of a concat-skip net."""
+    widths, w = [], d_in
+    for width in arch:
+        widths.append(w)
+        w += width
+    return widths + [w]
+
+
+@_module
+class DenseNet(Module):
     """Concat-skip DenseNet with relu^2 hidden features.
 
     Layer i maps the running feature vector (width sum(dims[:i+1])) through
@@ -56,32 +119,50 @@ class DenseNet(nn.Module):
     weight_scale: float = 0.1
     bias_init_value: float = 0.0
     output_relu: bool = False
-    compute_dtype: Optional[jnp.dtype] = None  # e.g. bf16 on the MXU
+    compute_dtype: Optional[jnp.dtype] = None  # e.g. bf16 matmuls
 
-    @nn.compact
-    def __call__(self, x):
+    def _init(self, key, x):
+        outs = [*self.arch, self.d_out]
+        keys = jax.random.split(key, len(outs))
+        return {f"Dense_{i}": _dense_params(
+                    keys[i], w_in, w_out,
+                    _scaled_normal(self.weight_scale),
+                    init.constant(self.bias_init_value))
+                for i, (w_in, w_out) in enumerate(
+                    zip(_skip_widths(x.shape[-1], self.arch), outs))}
+
+    def _apply(self, p, x):
         feats = x
-        for width in self.arch:
-            h = nn.Dense(
-                width,
-                kernel_init=_scaled_normal(self.weight_scale),
-                bias_init=nn.initializers.constant(self.bias_init_value),
-                dtype=self.compute_dtype,
-            )(feats)
+        for i in range(len(self.arch)):
+            h = _dense(p[f"Dense_{i}"], feats, self.compute_dtype)
             feats = jnp.concatenate(
-                [feats, (nn.relu(h) ** 2).astype(x.dtype)], axis=-1)
-        out = nn.Dense(
-            self.d_out,
-            kernel_init=_scaled_normal(self.weight_scale),
-            bias_init=nn.initializers.constant(self.bias_init_value),
-            dtype=self.compute_dtype,
-        )(feats)
+                [feats, (jax.nn.relu(h) ** 2).astype(x.dtype)], axis=-1)
+        out = _dense(p[f"Dense_{len(self.arch)}"], feats, self.compute_dtype)
         if self.output_relu:
-            out = nn.relu(out)
+            out = jax.nn.relu(out)
         return out.astype(x.dtype)
 
 
-class DenseNetTanh(nn.Module):
+def _skip_init(key, d_in, arch, d_out, kernel_init=init.lecun_normal(),
+               bias_init=init.zeros):
+    outs = [*arch, d_out]
+    keys = jax.random.split(key, len(outs))
+    return {f"Dense_{i}": _dense_params(keys[i], w_in, w_out, kernel_init,
+                                        bias_init)
+            for i, (w_in, w_out) in enumerate(
+                zip(_skip_widths(d_in, arch), outs))}
+
+
+def _skip_apply(p, x, n_hidden, act):
+    feats = x
+    for i in range(n_hidden):
+        feats = jnp.concatenate([feats, act(_dense(p[f"Dense_{i}"], feats))],
+                                axis=-1)
+    return _dense(p[f"Dense_{n_hidden}"], feats)
+
+
+@_module
+class DenseNetTanh(Module):
     """Concat-skip net with tanh hidden features (function_space.py:143-158).
     ``output_relu`` covers the notebook ``DenseNet_2`` variant used for
     nonnegative eigenfunctions (Schroedinger notebook cell 4)."""
@@ -90,19 +171,16 @@ class DenseNetTanh(nn.Module):
     arch: Sequence[int] = (30, 30)
     output_relu: bool = False
 
-    @nn.compact
-    def __call__(self, x):
-        feats = x
-        for width in self.arch:
-            h = nn.Dense(width)(feats)
-            feats = jnp.concatenate([feats, jnp.tanh(h)], axis=-1)
-        out = nn.Dense(self.d_out)(feats)
-        if self.output_relu:
-            out = nn.relu(out)
-        return out
+    def _init(self, key, x):
+        return _skip_init(key, x.shape[-1], self.arch, self.d_out)
+
+    def _apply(self, p, x):
+        out = _skip_apply(p, x, len(self.arch), jnp.tanh)
+        return jax.nn.relu(out) if self.output_relu else out
 
 
-class DenseNetTanh2(nn.Module):
+@_module
+class DenseNetTanh2(Module):
     """Concat-skip net with tanh(.)^2 features and 0.1*randn weights
     (Committor function.ipynb cell 1)."""
 
@@ -110,19 +188,16 @@ class DenseNetTanh2(nn.Module):
     arch: Sequence[int] = (30, 30)
     weight_scale: float = 0.1
 
-    @nn.compact
-    def __call__(self, x):
-        feats = x
-        for width in self.arch:
-            h = nn.Dense(width, kernel_init=_scaled_normal(self.weight_scale),
-                         bias_init=nn.initializers.zeros)(feats)
-            feats = jnp.concatenate([feats, jnp.tanh(h) ** 2], axis=-1)
-        return nn.Dense(self.d_out,
-                        kernel_init=_scaled_normal(self.weight_scale),
-                        bias_init=nn.initializers.zeros)(feats)
+    def _init(self, key, x):
+        return _skip_init(key, x.shape[-1], self.arch, self.d_out,
+                          _scaled_normal(self.weight_scale))
+
+    def _apply(self, p, x):
+        return _skip_apply(p, x, len(self.arch), lambda h: jnp.tanh(h) ** 2)
 
 
-class DenseNetRelu(nn.Module):
+@_module
+class DenseNetRelu(Module):
     """Concat-skip net with plain relu hidden features, weights
     0.01*randn + 0.01 and bias 0.1, linear output (the ``DenseNet_relu``
     class local to "Eigenvalue - nonlinear Schroedinger equation,
@@ -131,20 +206,18 @@ class DenseNetRelu(nn.Module):
     d_out: int
     arch: Sequence[int] = (30, 30)
 
-    @nn.compact
-    def __call__(self, x):
-        def kinit(key, shape, dtype=jnp.float32):
-            return 0.01 * jax.random.normal(key, shape, dtype) + 0.01
-        feats = x
-        for width in self.arch:
-            h = nn.Dense(width, kernel_init=kinit,
-                         bias_init=nn.initializers.constant(0.1))(feats)
-            feats = jnp.concatenate([feats, nn.relu(h)], axis=-1)
-        return nn.Dense(self.d_out, kernel_init=kinit,
-                        bias_init=nn.initializers.constant(0.1))(feats)
+    def _init(self, key, x):
+        def kinit(k, shape, dtype=jnp.float32):
+            return 0.01 * jax.random.normal(k, shape, dtype) + 0.01
+        return _skip_init(key, x.shape[-1], self.arch, self.d_out, kinit,
+                          init.constant(0.1))
+
+    def _apply(self, p, x):
+        return _skip_apply(p, x, len(self.arch), jax.nn.relu)
 
 
-class TanhMLP(nn.Module):
+@_module
+class TanhMLP(Module):
     """[d_in, 30, 30, d_out] tanh MLP with N(0, 0.01) weight AND bias init
     — the default 'inner' time-approx control net (``MySequential``,
     function_space.py:177-195, used at solver.py:91)."""
@@ -152,24 +225,26 @@ class TanhMLP(nn.Module):
     d_out: int
     hidden: Sequence[int] = (30, 30)
     init_scale: float = 0.01
-    compute_dtype: Optional[jnp.dtype] = None  # e.g. bf16 on the MXU
+    compute_dtype: Optional[jnp.dtype] = None  # e.g. bf16 matmuls
 
-    @nn.compact
-    def __call__(self, x):
+    def _init(self, key, x):
+        dims = [x.shape[-1], *self.hidden, self.d_out]
+        keys = jax.random.split(key, len(dims) - 1)
+        s = _scaled_normal(self.init_scale)
+        return {f"Dense_{i}": _dense_params(keys[i], dims[i], dims[i + 1],
+                                            s, s)
+                for i in range(len(dims) - 1)}
+
+    def _apply(self, p, x):
         in_dtype = x.dtype
-        for width in self.hidden:
-            x = nn.Dense(width, kernel_init=_scaled_normal(self.init_scale),
-                         bias_init=_scaled_normal(self.init_scale),
-                         dtype=self.compute_dtype)(x)
-            x = jnp.tanh(x)
-        out = nn.Dense(self.d_out,
-                       kernel_init=_scaled_normal(self.init_scale),
-                       bias_init=_scaled_normal(self.init_scale),
-                       dtype=self.compute_dtype)(x)
+        for i in range(len(self.hidden)):
+            x = jnp.tanh(_dense(p[f"Dense_{i}"], x, self.compute_dtype))
+        out = _dense(p[f"Dense_{len(self.hidden)}"], x, self.compute_dtype)
         return out.astype(in_dtype)
 
 
-class BatchNormMLP(nn.Module):
+@_module
+class BatchNormMLP(Module):
     """Plain MLP with per-batch normalization layers (``NN``,
     function_space.py:82-113).  The reference never uses running averages
     in its training loops, so normalization uses the batch statistics."""
@@ -177,83 +252,92 @@ class BatchNormMLP(nn.Module):
     d_out: int
     hidden: int = 20
 
-    @nn.compact
-    def __call__(self, x):
-        def bn(v):
+    def _init(self, key, x):
+        k0, k1 = jax.random.split(key)
+        p = {}
+        for i, w in enumerate((x.shape[-1], self.hidden, self.d_out)):
+            p[f"bn_scale_{i}"] = jnp.ones((w,), jnp.float32)
+            p[f"bn_bias_{i}"] = jnp.zeros((w,), jnp.float32)
+        normal = init.normal(1.0)
+        p["Dense_0"] = _dense_params(k0, x.shape[-1], self.hidden, normal,
+                                     use_bias=False)
+        p["Dense_1"] = _dense_params(k1, self.hidden, self.d_out, normal,
+                                     use_bias=False)
+        return p
+
+    def _apply(self, p, x):
+        def bn(v, i):
             mu = jnp.mean(v, axis=0, keepdims=True)
             var = jnp.var(v, axis=0, keepdims=True)
-            scale = self.param(f"bn_scale_{bn.i}", nn.initializers.ones,
-                               (v.shape[-1],))
-            bias = self.param(f"bn_bias_{bn.i}", nn.initializers.zeros,
-                              (v.shape[-1],))
-            bn.i += 1
-            return scale * (v - mu) / jnp.sqrt(var + 1e-5) + bias
+            return (p[f"bn_scale_{i}"] * (v - mu) / jnp.sqrt(var + 1e-5)
+                    + p[f"bn_bias_{i}"])
 
-        bn.i = 0
-        x = bn(x)
-        x = nn.Dense(self.hidden, use_bias=False,
-                     kernel_init=nn.initializers.normal(1.0))(x)
-        x = bn(x)
-        x = nn.relu(x)
-        x = nn.Dense(self.d_out, use_bias=False,
-                     kernel_init=nn.initializers.normal(1.0))(x)
-        x = bn(x)
-        return x
+        x = bn(x, 0)
+        x = jax.nn.relu(bn(_dense(p["Dense_0"], x), 1))
+        return bn(_dense(p["Dense_1"], x), 2)
 
 
-class ReluMLP1d(nn.Module):
+@_module
+class ReluMLP1d(Module):
     """Tiny 1-d two-layer ReLU net (``NN_Nik``, function_space.py:161-174)."""
 
     hidden: int = 16
 
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Dense(self.hidden)(x)
-        x = nn.relu(x)
-        return nn.Dense(1)(x)
+    def _init(self, key, x):
+        k0, k1 = jax.random.split(key)
+        return {"Dense_0": _dense_params(k0, x.shape[-1], self.hidden),
+                "Dense_1": _dense_params(k1, self.hidden, 1)}
+
+    def _apply(self, p, x):
+        return _dense(p["Dense_1"], jax.nn.relu(_dense(p["Dense_0"], x)))
 
 
-class Sines(nn.Module):
+@_module
+class Sines(Module):
     """Linear combination of M sine basis functions, d = 1 only
     (function_space.py:66-79)."""
 
     M: int = 10
 
-    @nn.compact
-    def __call__(self, x):
+    def _init(self, key, x):
+        return {"alpha": init.normal(1.0)(key, (self.M, 1), jnp.float32)}
+
+    def _apply(self, p, x):
         omega = jnp.linspace(1.0, float(self.M), self.M)[None, :]
-        alpha = self.param("alpha", nn.initializers.normal(1.0), (self.M, 1))
-        return jnp.sin(x @ omega) @ alpha
+        return jnp.sin(x @ omega) @ p["alpha"]
 
 
-class ScalarParam(nn.Module):
+@_module
+class ScalarParam(Module):
     """Single learnable scalar broadcast over the batch (``SingleParam``,
     function_space.py:6-21).  Used for Y_0 and the eigenvalue lambda."""
 
     initial: Optional[float] = 0.0  # None => random
 
-    @nn.compact
-    def __call__(self, x):
-        if self.initial is None:
-            init = nn.initializers.normal(1.0)
-        else:
-            init = nn.initializers.constant(self.initial)
-        y0 = self.param("Y_0", init, (1,))
-        return jnp.broadcast_to(y0, (x.shape[0],))
+    def _init(self, key, x):
+        fn = (init.normal(1.0) if self.initial is None
+              else init.constant(self.initial))
+        return {"Y_0": fn(key, (1,), jnp.float32)}
+
+    def _apply(self, p, x):
+        return jnp.broadcast_to(p["Y_0"], (x.shape[0],))
 
 
-class ConstantVector(nn.Module):
+@_module
+class ConstantVector(Module):
     """Learnable constant d-vector (``Constant``, function_space.py:24-34)."""
 
     d: int
 
-    @nn.compact
-    def __call__(self, x):
-        c = self.param("c", nn.initializers.normal(1.0), (self.d,))
-        return jnp.broadcast_to(c, (x.shape[0], self.d))
+    def _init(self, key, x):
+        return {"c": init.normal(1.0)(key, (self.d,), jnp.float32)}
+
+    def _apply(self, p, x):
+        return jnp.broadcast_to(p["c"], (x.shape[0], self.d))
 
 
-class LinearLQ(nn.Module):
+@_module
+class LinearLQ(Module):
     """LQ-structured linear control u = Q^{-1} B^T F x with learnable F
     (``Linear``, function_space.py:37-48).
 
@@ -267,15 +351,17 @@ class LinearLQ(nn.Module):
     Q: jnp.ndarray
     init_scale: float = 1.0
 
-    @nn.compact
-    def __call__(self, x):
+    def _init(self, key, x):
         d = self.B.shape[0]
-        F = self.param("F", nn.initializers.normal(self.init_scale), (d, d))
-        gain = jnp.linalg.inv(self.Q) @ self.B.T @ F
+        return {"F": init.normal(self.init_scale)(key, (d, d), jnp.float32)}
+
+    def _apply(self, p, x):
+        gain = jnp.linalg.inv(self.Q) @ self.B.T @ p["F"]
         return x @ gain.T
 
 
-class LinearLQTime(nn.Module):
+@_module
+class LinearLQTime(Module):
     """Time-conditioned LQ-structured linear control for
     ``time_approx='inner'`` (input ``[t, x]``):
 
@@ -298,31 +384,33 @@ class LinearLQTime(nn.Module):
     T: float
     degree: int = 8
 
-    @nn.compact
-    def __call__(self, tx):
+    def _init(self, key, x):
         d = self.B.shape[0]
+        return {"F": jnp.zeros((self.degree + 1, d, d), jnp.float32)}
+
+    def _apply(self, p, tx):
         t, x = tx[:, :1], tx[:, 1:]
         s = 2.0 * t / self.T - 1.0
         feats = [jnp.ones_like(s), s]
         for _ in range(self.degree - 1):
             feats.append(2.0 * s * feats[-1] - feats[-2])
         phi = jnp.concatenate(feats[: self.degree + 1], axis=1)  # (K, J)
-        F = self.param("F", nn.initializers.zeros,
-                       (self.degree + 1, d, d))
         gain = jnp.linalg.inv(self.Q) @ self.B.T               # (d, d)
-        # J matmuls of (K, d) x (d, d) — MXU-friendly; the per-row basis
-        # contraction is O(K J d)
-        xF = jnp.einsum("ke,jde->kjd", x, F)
+        # J matmuls of (K, d) x (d, d); the per-row basis contraction is
+        # O(K J d)
+        xF = jnp.einsum("ke,jde->kjd", x, p["F"])
         return jnp.einsum("kj,kjd->kd", phi, xF) @ gain.T
 
 
-class Affine(nn.Module):
+@_module
+class Affine(Module):
     """Zero-initialized affine map A x + b (function_space.py:51-63)."""
 
     d_out: int
 
-    @nn.compact
-    def __call__(self, x):
-        A = self.param("A", nn.initializers.zeros, (self.d_out, x.shape[-1]))
-        b = self.param("b", nn.initializers.zeros, (1, self.d_out))
-        return x @ A.T + b
+    def _init(self, key, x):
+        return {"A": jnp.zeros((self.d_out, x.shape[-1]), jnp.float32),
+                "b": jnp.zeros((1, self.d_out), jnp.float32)}
+
+    def _apply(self, p, x):
+        return x @ p["A"].T + p["b"]

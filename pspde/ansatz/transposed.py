@@ -1,18 +1,19 @@
 """Column-major (transposed) ansatz evaluation: x as (d_in, K).
 
-TPU layout note: the solvers' hot rollouts evaluate narrow nets on huge
+Layout note: the solvers' hot rollouts evaluate narrow nets on huge
 path batches.  In the row-major layout the output of every matmul is
-(K, width) with width 30-100 — the lane (minor-most) dimension pads to
-128, and more importantly the batch axis K ends up streaming through the
-MXU.  The transposed form
+(K, width) with width 30-100, so the narrow width is the minor-most
+dimension.  The transposed form
 
     out (d_out, K) = dot_general(W (d_in, d_out), x (d_in, K),
                                  contract d_in with d_in)
 
-puts K in the lane dimension (dense for any K >= 128) without ever
-materializing a transpose.  Used by the fused training kernel
-(rollout/kernels.py: fused_train_rollout), where the path state lives as
-(d, K_tile) columns in VMEM.
+puts K in the minor-most dimension without ever materializing a
+transpose.  Used by the dk-layout rollouts (rollout/sde.py:
+hjb_rollout_dk, stopped_rollout_dk), which carry the path state as (d, K)
+columns.  The layout was chosen for another accelerator's 128-wide
+vector lanes; whether it pays on the GPU is measured per configuration
+(PERF.md).
 
 Supports the modules whose hot-loop use matters: TanhMLP (the default
 'inner' control net, solver.py:91) and the DenseNet concat-skip family
@@ -34,8 +35,7 @@ def _dense_T(prm, xT, compute_dtype=None):
     xT (in, K) -> (out, K), contracting over the input dim.
 
     With a low-precision ``compute_dtype`` the matmul inputs are cast but
-    the accumulator stays f32 (``preferred_element_type`` — also a hard
-    Mosaic requirement for bf16 tpu.matmul inside Pallas kernels)."""
+    the accumulator stays f32 (``preferred_element_type``)."""
     W, b = prm["kernel"], prm["bias"]
     if compute_dtype is not None:
         W, xT = W.astype(compute_dtype), xT.astype(compute_dtype)
@@ -77,17 +77,3 @@ def transposed_apply(module, params, xT):
 
     raise NotImplementedError(
         f"transposed_apply: unsupported module {type(module).__name__}")
-
-
-def make_transposed_apply(module, params):
-    """(leaves_tuple, apply_T) where apply_T(leaves, xT) evaluates the
-    module in column layout from a flat tuple of parameter leaves (the
-    calling convention of the Pallas kernels, which receive weights as
-    positional VMEM refs)."""
-    treedef = jax.tree.structure(params)
-
-    def apply_T(leaves, xT):
-        prm = jax.tree.unflatten(treedef, list(leaves))
-        return transposed_apply(module, prm, xT)
-
-    return tuple(jax.tree.leaves(params)), apply_T

@@ -2,7 +2,6 @@ from .estimator_stats import loss_estimator_statistics, relative_error
 from .gradient_variance import gradient_variances
 from .importance_sampling import (do_importance_sampling,
                                   do_importance_sampling_Wei,
-                                  importance_sampling_fused,
                                   make_is_runner,
                                   do_importance_sampling_me,
                                   importance_sampling)

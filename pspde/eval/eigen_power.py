@@ -17,7 +17,7 @@ and the eigenpair (V, -lambda) with POSITIVE eigenfunction is dominant
 
 contracts every other eigencomponent by e^{-(lambda_0 - lambda_1) T}
 per stage.  Joint-training Adam equilibria plateau with an O(1e-4)
-eigenfunction error and an O(1e-2) induced lambda bias (RESULTS.md
+eigenfunction error and an O(1e-2) induced lambda bias (the
 round-2/3 FP numbers); a few semigroup stages push V to the MC/
 regression floor and the frozen-V lambda regression
 (EigenSolver.estimate_lambda) then reads the eigenvalue at that floor.
@@ -81,7 +81,7 @@ def fk_semigroup_targets(problem, v_fn, Xs, K_inner, T_horizon, delta_t,
 
 def eigen_power_refine(
     problem,
-    net,                       # Flax module V(x); params as net.init(...)
+    net,                       # ansatz module V(x); params as net.init(...)
     params,
     n_stages: int = 3,
     T_horizon: float = 1.0,

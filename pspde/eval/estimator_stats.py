@@ -8,8 +8,9 @@ statistical relative errors of the cross-entropy-type estimators
 
 Memory scaling: the ensemble is processed in ``n_chunks`` sequential
 rollouts; each chunk reduces to 13 raw-moment sums (float64 on host), so
-K = 5e7+ fits at any dimension (a monolithic (K, d) ensemble OOMs HBM
-around d = 15 at K = 5e7 on a 16 GB chip).
+K = 5e7+ fits at any dimension (a monolithic (K, d) ensemble at
+K = 5e7 and d = 15 alone is 3 GB of float32 per array, times the
+rollout's many live arrays).
 """
 
 from __future__ import annotations

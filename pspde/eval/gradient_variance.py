@@ -8,7 +8,7 @@ per-sample loss-gradient estimates for the moment / log-variance losses,
 and report the componentwise relative statistical error
 sqrt(Var) / |Mean|.
 
-TPU-native: one ``jax.jacrev`` of the whole rollout gives all (K, N, p)
+One ``jax.jacrev`` of the whole rollout gives all (K, N, p)
 per-sample per-step gradients in a single batched computation, replacing
 the reference's O(K * N) Python loop of ``backward(retain_graph=True)``
 calls (solver.py:238-251).

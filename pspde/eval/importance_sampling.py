@@ -304,95 +304,6 @@ def importance_sampling(problem, model, K: int, control: str = "approx",
     return float(mean_IS), float(var_IS), float(rel_IS)
 
 
-def importance_sampling_fused(problem, model, K: int, delta_t: float = 0.01,
-                              seed: int = 0, tile: int = 512,
-                              interpret: bool = False, verbose: bool = False,
-                              mesh=None, host_noise=None,
-                              antithetic: bool = False):
-    """Importance-sampling diagnostics on the fused Pallas rollout kernel:
-    the whole N-step controlled simulation runs inside one TPU kernel with
-    VMEM-resident state (rollout/kernels.py).  Returns
-    (mean_IS, var_IS, rel_IS).
-
-    Restrictions (use :func:`importance_sampling` when they don't hold):
-      * only 'inner' (time-concat) controls;
-      * STATE-INDEPENDENT sigma — the kernel applies
-        ``problem.sigma_struct`` as a constant matrix/diagonal, so a
-        sigma(x) problem would silently use sigma evaluated structurally;
-      * the control-net weights must fit in VMEM alongside a path tile —
-        the kernel estimates the footprint, auto-shrinks the tile, and
-        raises with the estimate if the weights alone exceed the budget.
-
-    With ``mesh`` (a 'dp'-axis mesh, K divisible by its size), the kernel
-    is shard_mapped over the path axis — each device simulates K/n_dp
-    paths with a disjoint PRNG stream (seed spaced by the shard's maximum
-    tile count, mirroring kernels.py: make_fused_train_rollout_sharded) —
-    and the statistics are computed on the globally sharded log-weights.
-    ``host_noise`` (test mode) is the per-shard (N, K/n_dp, d) block,
-    identical on every shard.
-
-    ``antithetic`` simulates K/2 mirrored noise pairs (two kernel runs
-    with the SAME seeds and compile-time noise signs +1/-1, so the runs
-    are elementwise-aligned pairs even under ``mesh``) and reports the
-    statistics of the pair-averaged estimator at total path count K —
-    the fused counterpart of ``importance_sampling(antithetic=True)``.
-    """
-    assert model.time_approx == "inner", "fused IS requires 'inner' control"
-    from ..rollout.kernels import ISRolloutOut, fused_controlled_rollout
-    if antithetic and K % 2:
-        raise ValueError("antithetic importance sampling needs even K")
-    K_run = K // 2 if antithetic else K
-    N = int(np.ceil(problem.T / delta_t))
-    leaves, treedef = jax.tree.flatten(model.params["z"])
-    net = model.z_net
-
-    def u_apply(leaves_t, tX):
-        prm = jax.tree.unflatten(treedef, list(leaves_t))
-        return -net.apply(prm, tX)
-
-    def run(sign):
-        if mesh is not None:
-            from jax.sharding import PartitionSpec as P
-            n_dp = mesh.shape["dp"]
-            if K_run % n_dp:
-                raise ValueError(
-                    f"K={K_run} not divisible by mesh 'dp'={n_dp}")
-            K_local = K_run // n_dp
-            spacing = max(1, K_local // 8)  # >= the kernel's max tile count
-
-            def shard_fn():
-                idx = jax.lax.axis_index("dp")
-                return fused_controlled_rollout(
-                    problem, u_apply, tuple(leaves), K_local, N, delta_t,
-                    seed=seed + idx * spacing, tile=tile,
-                    interpret=interpret, host_noise=host_noise,
-                    noise_sign=sign)
-
-            out = jax.shard_map(
-                shard_fn, mesh=mesh, in_specs=(),
-                out_specs=ISRolloutOut(P("dp", None), P("dp"), P("dp"),
-                                       P("dp")),
-                check_vma=False)()
-        else:
-            out = fused_controlled_rollout(problem, u_apply, tuple(leaves),
-                                           K_run, N, delta_t, seed=seed,
-                                           tile=tile, interpret=interpret,
-                                           host_noise=host_noise,
-                                           noise_sign=sign)
-        return (-out.f_int - problem.g(out.X) - out.ito
-                - 0.5 * out.riemann)
-
-    logw = run(1.0)
-    if antithetic:
-        # pair-averaged log-weights: the K/2 results ARE the iid units
-        logw = jnp.logaddexp(logw, run(-1.0)) - jnp.log(2.0)
-    mean_IS, var_IS, rel_IS = jax.device_get(_stats_from_logw(logw))
-    if verbose:
-        print("IS mean: %.4e, IS variance: %.4e, IS RE %.4e"
-              % (mean_IS, var_IS, rel_IS))
-    return float(mean_IS), float(var_IS), float(rel_IS)
-
-
 # Reference-name aliases
 do_importance_sampling_me = importance_sampling
 

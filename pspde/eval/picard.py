@@ -12,9 +12,9 @@ each stage contracts the model's systematic error by ~ (T - t) *
 sup|dh/dy| (classical Picard iteration; ~0.3x per stage for Allen-Cahn
 on [0, 0.3]), while the per-anchor MC noise (K_inner paths) is averaged
 away by the regression over M anchors.  Two to three stages push a
-~3%-accurate trained model to sub-1% pointwise accuracy at a cost of
-seconds per stage on a v5e (M * K_inner * N path-steps, vectorized as
-one flat ensemble with per-anchor time gating).
+~3%-accurate trained model to sub-1% pointwise accuracy; a stage costs
+M * K_inner * N path-steps, vectorized as one flat ensemble with
+per-anchor time gating.
 
 No counterpart exists in the reference; this composes its diffusion-loss
 training output with the framework's rollout engine as an a-posteriori
@@ -77,7 +77,7 @@ def _mc_targets(problem, v_fn, ts, Xs, K_inner, delta_t, key):
 
 def picard_refine(
     problem,
-    net,                       # Flax module: (x, t) input as [x, t] concat
+    net,                       # ansatz module: (x, t) input as [x, t] concat
     params,                    # trained params for `net`
     x0: Optional[jnp.ndarray] = None,   # (d,) final evaluation point
     n_stages: int = 2,
@@ -225,7 +225,7 @@ def mc_targets_elliptic(problem, v_fn, Xs, K_inner, N_cap, delta_t, key):
 
 def picard_refine_elliptic(
     problem,
-    net,                       # Flax module: V(x), input (K, d)
+    net,                       # ansatz module: V(x), input (K, d)
     params,                    # trained params for `net`
     n_stages: int = 2,
     M: int = 4096,
@@ -288,9 +288,9 @@ def picard_refine_elliptic(
         (p, _), ls = lax.scan(body, (p, state), None, length=reg_steps)
         return p, ls[-1]
 
-    # The flat (M * K_inner, d) ensemble can exceed HBM at large d /
-    # deep N_cap (a d=50 M=8192 K_inner=512 call crashed the TPU
-    # worker); process anchors in slices bounded by max_paths_per_call.
+    # The flat (M * K_inner, d) ensemble can exceed device memory at
+    # large d / deep N_cap (d=50, M=8192, K_inner=512 did); process
+    # anchors in slices bounded by max_paths_per_call.
     per_slice = max(1, min(M, max_paths_per_call // max(K_inner, 1)))
     n_slices = -(-M // per_slice)
 

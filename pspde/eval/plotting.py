@@ -1,7 +1,7 @@
 """Plotting & experiment-log persistence (rebuilds utilities.py:17-225,
 400-437, 475-490).
 
-Matplotlib is optional at import time (headless TPU pods may not want it);
+Matplotlib is optional at import time (headless machines may lack it);
 every plot function imports it lazily.
 """
 

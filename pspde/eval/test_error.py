@@ -46,7 +46,7 @@ def control_test_error(problem, model, K: int = 4096, key=None,
     at X_n but u_true at the post-step X_{n+1} — which for a
     state-dependent u* injects an O(sqrt(dt)) noise floor:
     u*(X_{n+1}) - u*(X_n) ~ (grad u*) sigma xi sqrt(dt).  Measured
-    round 4 on LQGC (RESULTS.md): the EXACT Riccati control reads rel
+    round 4 on LQGC: the EXACT Riccati control reads rel
     0.165 at dt=0.01 under that metric (0.083 at dt=0.0025 — the
     sqrt(dt) signature), so the reference-semantics number cannot
     distinguish a converged control from a 16%-wrong one.  This metric

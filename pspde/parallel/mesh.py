@@ -3,12 +3,14 @@
 The reference is single-GPU (``pt.device('cuda')`` hardcoded at
 solver.py:36,573,947); the only parallel axis its algorithms have is the
 trajectory-ensemble ('paths') batch dim K.  Here that axis is sharded
-across chips as the 'dp' mesh axis; parameters are replicated (optionally
-sharded over a 'tp' axis for very wide ansatz layers).  All cross-chip
-communication is inserted by XLA from sharding constraints: loss means
-become all-reduces over ICI, parameter gradients are psummed by GSPMD —
-no hand-written collectives needed at these payload sizes (scalars and
-parameter-sized tensors; latency-, not bandwidth-bound).
+across devices as the 'dp' mesh axis; parameters are replicated
+(optionally sharded over a 'tp' axis for very wide ansatz layers).  All
+cross-device communication is inserted by XLA from sharding constraints:
+loss means become all-reduces (NCCL over NVLink on GPUs), parameter
+gradients are psummed by GSPMD — no hand-written collectives needed at
+these payload sizes (scalars and parameter-sized tensors; latency-, not
+bandwidth-bound).  The cards of one host are joined all to all, so the
+mesh is a plain (dp, tp) grid that follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -23,16 +25,16 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Multi-host initialization (jax.distributed) for pod-scale runs.
+    """Multi-process initialization (jax.distributed).
 
-    After this, ``jax.devices()`` spans all hosts and the same
-    ``make_mesh`` + sharding-constraint path scales across the pod: XLA
-    routes the dp all-reduces over ICI within a slice and DCN across
-    slices.  Benign no-op ONLY when JAX distributed was already
-    initialized (e.g. Cloud TPU env auto-detection ran first); any other
-    failure — bad coordinator address, port clash, inconsistent process
-    counts — re-raises so a half-initialized pod run cannot masquerade
-    as success."""
+    After this, ``jax.devices()`` spans all processes and the same
+    ``make_mesh`` + sharding-constraint path scales across them.  Pass
+    ``coordinator_address`` ('host:port'), ``num_processes`` and
+    ``process_id`` explicitly where no cluster environment provides
+    them.  Benign no-op ONLY when JAX distributed was already
+    initialized; any other failure — bad coordinator address, port
+    clash, inconsistent process counts — re-raises so a
+    half-initialized run cannot masquerade as success."""
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,

@@ -68,12 +68,12 @@ class Geometry:
 class DiffusionMatrix:
     """Structured (d, d) diffusion matrix.
 
-    TPU note: in the Euler-Maruyama hot loop the reference computes
+    In the Euler-Maruyama hot loop the reference computes
     ``pt.mm(sigma(X), xi.t()).t()`` (solver.py:471-472) — a dense (d, d) x
     (d, K) matmul even though sigma is almost always ``c * I``.  We record
     the structure ('scalar' | 'diag' | 'full') so ``apply`` lowers to a
-    broadcasted multiply on the VPU when possible and only uses the MXU for
-    genuinely dense sigmas (e.g. ExponentialOnBallNonlinearSinHessian,
+    broadcasted elementwise multiply when possible and only runs a matmul
+    for genuinely dense sigmas (e.g. ExponentialOnBallNonlinearSinHessian,
     problems.py:1072).
     """
 
@@ -118,8 +118,8 @@ class DiffusionMatrix:
 
     def apply_cols(self, v: jnp.ndarray) -> jnp.ndarray:
         """sigma @ v in COLUMN layout: v (d, K) -> (d, K).  Used by the
-        transposed (K-in-lanes) rollout paths, where the batch axis lives
-        in the TPU lane dimension (ansatz/transposed.py layout note)."""
+        transposed (dk) rollout paths, where the batch axis is the minor
+        dimension (ansatz/transposed.py layout note)."""
         if self.kind == "scalar":
             return self.scale * v
         if self.kind == "diag":
@@ -136,29 +136,16 @@ class DiffusionMatrix:
             return self.diag[:, None] * v
         return jnp.matmul(self.mat.T, v)
 
-    def inv_apply(self, v: jnp.ndarray) -> jnp.ndarray:
-        """sigma^{-1} @ v per batch row (used to reconstruct the driving
-        noise from Euler-Maruyama increments in the fused training
-        rollout, rollout/sde.py: hjb_rollout_fused)."""
-        if self.kind == "scalar":
-            return v / self.scale
-        if self.kind == "diag":
-            return v / self.diag
-        if not hasattr(self, "_inv_mat"):
-            self._inv_mat = jnp.asarray(
-                np.linalg.inv(np.asarray(self.mat)), dtype=jnp.float32)
-        return v @ self._inv_mat.T
-
 
 class Problem:
     """Base class: holds common metadata; subclasses define the physics.
 
-    Optional transposed-coefficient protocol (column layout, batch in the
-    TPU lane dimension; see ansatz/transposed.py): a problem may define
+    Optional transposed-coefficient protocol (column layout, batch as the
+    minor dimension; see ansatz/transposed.py): a problem may define
     ``b_T(xT (d, K)) -> (d, K)``, ``h_T(t, xT, y (K,), zT) -> (K,)`` and
-    ``f_T(xT, t) -> (K,)`` to enable the transposed rollout fast paths
-    (rollout/kernels.py: fused_train_rollout).  ``supports_transposed``
-    reports whether all required pieces exist.
+    ``f_T(xT, t) -> (K,)`` to enable the transposed (dk) rollouts
+    (rollout/sde.py: hjb_rollout_dk, stopped_rollout_dk).
+    ``supports_transposed`` reports whether all required pieces exist.
     """
 
     # True when h(t, x, y, z) ignores y — enables the batched-gradient

@@ -41,8 +41,8 @@ class _ZeroDriftBall(Problem):
     def f(self, x, t=None):
         return jnp.zeros(x.shape[0], dtype=x.dtype)
 
-    # transposed-coefficient protocol (base.py; column layout, batch in
-    # the TPU lane dimension): zero drift is layout-trivial; subclasses
+    # transposed-coefficient protocol (base.py; column layout, batch as
+    # the minor dimension): zero drift is layout-trivial; subclasses
     # add h_T — their h's consume x only through per-path reductions, so
     # the column form just swaps the reduction axis to 0.
     def b_T(self, xT):

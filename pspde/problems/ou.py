@@ -1,6 +1,6 @@
 """Ornstein-Uhlenbeck / linear-quadratic control problems.
 
-Rebuilds (TPU-native, pure JAX) the reference problems:
+Rebuilds (pure JAX) the reference problems:
   * ``LLGC``            — problems.py:14-65   (OU drift, linear terminal cost)
   * ``LLGC_general_f``  — problems.py:68-115  (non-quadratic control cost)
   * ``LQGC``            — problems.py:118-175 (quadratic running+terminal cost,
@@ -78,7 +78,7 @@ class LLGC(Problem):
     def g(self, x):
         return x @ self.alpha
 
-    # -- transposed-coefficient protocol (base.py) for the K-in-lanes
+    # -- transposed-coefficient protocol (base.py) for the (d, K)
     # rollout fast paths; batch axis is the COLUMN axis here.
     def b_T(self, xT):
         if self._A_is_neg_identity:

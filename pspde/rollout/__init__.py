@@ -1,5 +1,3 @@
-from .kernels import (ISRolloutOut, fused_controlled_rollout,
-                      reference_controlled_rollout)
 from .sampling import (inside_fn, sample_boundary,
                        sample_boundary_reflected, sample_domain)
 from .sde import (HJBRolloutConfig, HJBRolloutOut, StoppedRolloutConfig,

@@ -1,6 +1,6 @@
-"""Euler-Maruyama SDE rollout engines as ``lax.scan`` kernels.
+"""Euler-Maruyama SDE rollout engines as ``lax.scan`` loops.
 
-This is the TPU-native replacement for the reference's eager Python time
+This is the JAX replacement for the reference's eager Python time
 loops (solver.py:440-494 for the HJB/parabolic solver, solver.py:723-785
 for the stopped elliptic rollout): one ``lax.scan`` over N steps, each step
 operating on the whole (K, d) path ensemble, jitted and differentiable
@@ -73,7 +73,7 @@ def hjb_rollout(
 
     Mixed precision: the path state X (and hence the net compute, which
     follows the input dtype) runs in ``X0.dtype`` — bf16 halves the
-    HBM-resident scan carry and activates the MXU bf16 path — while Y,
+    device-resident scan carry and runs the matmuls in bf16 — while Y,
     Z_sum and the error accumulators ALWAYS accumulate in float32
     (SURVEY.md section 7: Girsanov/value integrals overflow or lose mass
     in bf16)."""
@@ -187,15 +187,12 @@ def hjb_rollout_dk(
     u_tab: Optional[jnp.ndarray] = None,  # (N, d) state-indep. reference
     noise_layout: str = "dk",
 ) -> HJBRolloutOut:
-    """Transposed (K-in-lanes) variant of :func:`hjb_rollout`.
+    """Transposed (d, K) variant of :func:`hjb_rollout`.
 
     The path state is carried as (d, K) COLUMNS so every net matmul puts
-    the huge path axis in the TPU lane dimension (ansatz/transposed.py
-    layout note) — measured on v5e at the d=100 bench config this plus
-    rng_impl='rbg' lifts the full train step from 112M to ~176M
-    path-steps/s (the row-major layout is matmul-lane-bound; fixing that
-    exposes the threefry PRNG as the next wall, which rbg removes;
-    neither fix alone moves the needle).  Semantics are identical to
+    the huge path axis in the minor dimension (ansatz/transposed.py
+    layout note).  Whether that is faster than the row-major engine on
+    the GPU is not measured yet.  Semantics are identical to
     :func:`hjb_rollout` step-for-step (solver.py:449-494 order).
 
     Requirements (asserted): control mode, no burgers drift, problem
@@ -286,35 +283,47 @@ def hjb_rollout_dk(
     return HJBRolloutOut(XT.T, Y, Z_sum, u_l2, jnp.zeros_like(Y))
 
 
-def _remat_scan(step, carry0, N: int, remat: bool, threshold: int = 2048,
-                carry_budget_bytes: int = 8 << 30):
+# Stored-carry budget on a device that reports no memory limit (the host
+# CPU): 8 GiB.
+HOST_CARRY_BUDGET_BYTES = 8 << 30
+
+
+def carry_budget_bytes() -> int:
+    """Bytes the stored scan carries may take before :func:`_remat_scan`
+    switches to its sqrt schedule: half the first local device's memory
+    limit (``memory_stats()['bytes_limit']``, what the JAX process may
+    allocate), leaving the other half for the step's other buffers; the
+    host constant where the device reports no limit."""
+    stats = jax.local_devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return int(limit) // 2 if limit else HOST_CARRY_BUDGET_BYTES
+
+
+def _remat_scan(step, carry0, N: int, remat: bool, threshold: int = 2048):
     """Run ``lax.scan(step, carry0, arange(N))`` — but for long
     rematerialized horizons, as a sqrt-schedule scan-of-scans.
 
     Reverse-mode over a length-N scan stores the CARRY at every step
     (~N*K*d floats — 9 GB at the reference's N=200,000 BSDE config,
-    notebook cell 14 — which crashed the TPU worker) regardless of
-    per-step checkpointing, which only trims within-step intermediates.
-    Chunking with the inner ~sqrt(N)-step scan rematerialized stores only
-    the ~sqrt(N) outer carries and recomputes each chunk on the backward
-    pass: memory O(sqrt(N)*K*d), compute ~2x forward.  Steps beyond N
-    (grid padding) are masked to no-ops, so outputs and gradients are
-    bitwise the plain scan's (tests/test_fused_training.py).
+    notebook cell 14) regardless of per-step checkpointing, which only
+    trims within-step intermediates.  Chunking with the inner
+    ~sqrt(N)-step scan rematerialized stores only the ~sqrt(N) outer
+    carries and recomputes each chunk on the backward pass: memory
+    O(sqrt(N)*K*d), compute ~2x forward.  Steps beyond N (grid padding)
+    are masked to no-ops, so outputs and gradients are bitwise the plain
+    scan's (tests/test_remat.py).
 
     The schedule engages when remat is on and EITHER the horizon is long
     (N > threshold) or the stored-carry stack alone would exceed
-    ``carry_budget_bytes`` (f32 estimate; XLA's excess-precision pass
-    stores scan carries bf16-compressed at ~half that, so the 8 GB
-    default engages just past what a 16 GB v5e has been measured to
-    hold) — e.g. the d=1000, K=1e5, N=200 ensemble (BASELINE config 5)
-    stores an 80 GB f32 / 40 GB compressed X stack under the plain scan
-    and OOMs at compile, but 6 GB under the sqrt schedule (measured
-    round 3, 2.3 s/iter on the chip)."""
+    :func:`carry_budget_bytes` (f32 estimate)
+    — e.g. the d=1000, K=1e5, N=200 ensemble (BASELINE config 5) stores
+    an 80 GB f32 X stack under the plain scan, more than one 80 GB card
+    holds, but about 6 GB under the sqrt schedule."""
     carry_bytes = sum(
         math.prod(jnp.shape(x)) * jnp.result_type(x).itemsize
         for x in jax.tree.leaves(carry0))
-    if not (remat and (N > threshold or N * carry_bytes
-                       > carry_budget_bytes)):
+    if not (remat and (N > threshold
+                       or N * carry_bytes > carry_budget_bytes())):
         out, _ = lax.scan(step, carry0, jnp.arange(N))
         return out
 
@@ -346,7 +355,7 @@ def hjb_rollout_batched_grad(
     key: jax.Array,
     u_ref: Optional[Callable] = None,
 ) -> HJBRolloutOut:
-    """TPU-first fast path for the detached-forward control-mode rollout.
+    """Fast path for the detached-forward control-mode rollout.
 
     When ``detach_forward=True`` and h does not depend on y, the X path
     carries NO parameter gradient, and Y decomposes into per-step terms
@@ -355,8 +364,8 @@ def hjb_rollout_batched_grad(
     backpropagating through the sequential scan (N small backward
     kernels), we: (1) run a lean gradient-free scan that materializes the
     X path, then (2) evaluate the control network ONCE on the flattened
-    (N*K, d) batch — a single large, perfectly MXU-shaped matmul stack
-    whose backward is equally batched.  Identical outputs to
+    (N*K, d) batch — a single large matmul stack whose backward is
+    equally batched.  Identical outputs to
     :func:`hjb_rollout` (same per-step noise keys).
 
     Requirements (asserted): control mode, detach_forward, no value mode,
@@ -395,18 +404,11 @@ def hjb_rollout_batched_grad(
 
 
 def _assemble_hjb_from_path(cfg, problem, control_fn, params, Y0,
-                            X_pre, X_post, X_final, xis=None,
+                            X_pre, X_post, X_final, xis,
                             u_ref=None) -> HJBRolloutOut:
     """Phases 2-3 of the batched-gradient rollout: given the (N, K, d)
-    parameter-free path, evaluate the control ONCE on the flattened batch
-    and assemble Y / Z_sum / u_l2.
-
-    When ``xis`` is None the driving noise is reconstructed from the
-    Euler-Maruyama increments (used by :func:`hjb_rollout_fused`, whose
-    Pallas forward generates noise in-kernel): xi = sigma^{-1}((X_{n+1} -
-    X_n) - (b(X_n) + sigma c_n) dt) / sqrt(dt).  The reconstruction is
-    exact up to f32 rounding of the increment (~1e-7 relative), which is
-    orders below the Monte-Carlo noise floor of the losses."""
+    parameter-free path and its driving noise, evaluate the control ONCE
+    on the flattened batch and assemble Y / Z_sum / u_l2."""
     N, K, d = X_pre.shape
     dt = jnp.float32(cfg.delta_t)
     sq_dt = jnp.sqrt(dt)
@@ -423,10 +425,6 @@ def _assemble_hjb_from_path(cfg, problem, control_fn, params, Y0,
 
     c_all = lax.stop_gradient(-Z_all) if cfg.adaptive_forward \
         else jnp.zeros_like(Z_all)
-    if xis is None:
-        drift = jax.vmap(problem.b)(X_pre) + sig.apply(c_all)
-        xis = lax.stop_gradient(
-            sig.inv_apply(X_post - X_pre - drift * dt) / sq_dt)
     Zc = jnp.sum(Z_all * c_all, axis=-1)          # (N, K)
     Zxi = jnp.sum(Z_all * xis, axis=-1)
     h_all = jax.vmap(
@@ -456,56 +454,6 @@ def _assemble_hjb_from_path(cfg, problem, control_fn, params, Y0,
 
     return HJBRolloutOut(X_final, Y, Z_sum, u_l2,
                          jnp.zeros((K,), dtype=X_pre.dtype))
-
-
-def hjb_rollout_fused(
-    cfg: HJBRolloutConfig,
-    problem,
-    control_fn: Callable,
-    params: Any,
-    u_apply: Callable,        # (param_leaves_tuple, tX (K, d+1)) -> c (K, d)
-    param_leaves,             # tuple of f32 arrays (forward-drift weights)
-    X0: jnp.ndarray,          # (K, d) — must be broadcast(problem.X_0)
-    Y0: jnp.ndarray,
-    key: jax.Array,
-    u_ref: Optional[Callable] = None,
-    tile: int = 512,
-    interpret: bool = False,
-    host_noise: Optional[jnp.ndarray] = None,
-) -> HJBRolloutOut:
-    """Fully-fused training rollout: the N-step parameter-free forward
-    path runs inside ONE Pallas kernel (weights + path tile VMEM-resident,
-    in-kernel TPU PRNG, zero per-step dispatch/HBM-carry overhead —
-    rollout/kernels.py: fused_controlled_rollout with collect_path) which
-    streams the (N, K, d) pre-step path to HBM; the differentiable Y
-    assembly then evaluates the control once on the flattened N*K batch
-    exactly like :func:`hjb_rollout_batched_grad`.
-
-    The driving noise is reconstructed from the path increments (see
-    :func:`_assemble_hjb_from_path`) so the kernel only writes the X
-    stack.  Same requirements as the batched-grad path plus:
-    state-independent sigma, 'inner'-style control u_apply(leaves, [t, X]),
-    X0 = problem.X_0 (no random_X_0), f32.  Noise differs from
-    :func:`hjb_rollout`'s (TPU PRNG vs counter-based fold_in) except in
-    ``host_noise`` test mode — statistically equivalent, bitwise different.
-    """
-    assert cfg.detach_forward and not cfg.value_mode
-    assert cfg.repa_phase is None and not cfg.burgers_drift
-    from .kernels import fused_controlled_rollout
-
-    K, d = X0.shape
-    seed = jax.random.randint(key, (), 0, jnp.int32(2**31 - 1))
-    frozen_leaves = tuple(lax.stop_gradient(x) for x in param_leaves)
-    out, X_pre = fused_controlled_rollout(
-        problem, u_apply, frozen_leaves, K, cfg.N, cfg.delta_t,
-        seed=seed, with_f=False, tile=tile, interpret=interpret,
-        host_noise=host_noise, collect_path=True)
-    X_final = lax.stop_gradient(out.X)
-    X_pre = lax.stop_gradient(X_pre)
-    X_post = jnp.concatenate([X_pre[1:], X_final[None]], axis=0)
-    return _assemble_hjb_from_path(cfg, problem, control_fn, params, Y0,
-                                   X_pre, X_post, X_final, xis=None,
-                                   u_ref=u_ref)
 
 
 class StoppedRolloutOut(NamedTuple):
@@ -645,13 +593,12 @@ def stopped_rollout_dk(
     v_ref_T: Optional[Callable] = None,   # (XT,) -> (K,)
     noise_layout: str = "dk",
 ) -> StoppedRolloutOut:
-    """Transposed (K-in-lanes) variant of :func:`stopped_rollout`.
+    """Transposed (d, K) variant of :func:`stopped_rollout`.
 
     The path state is carried as (d, K) COLUMNS so the value-net matmuls
     — including the per-step vjp that computes Z = sigma^T grad V
-    (solver.py:725-729) — run with the path axis in the TPU lane
-    dimension (ansatz/transposed.py layout note; the same fix that lifted
-    the HJB scan 1.6x together with rng_impl='rbg').  Masking algebra is
+    (solver.py:725-729) — run with the path axis as the minor dimension
+    (ansatz/transposed.py layout note).  Masking algebra is
     step-for-step :func:`stopped_rollout` (solver.py:723-785), with every
     per-path mask a (K,) row vector broadcast over columns.
 

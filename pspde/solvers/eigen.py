@@ -30,6 +30,8 @@ from ..rollout.sampling import (inside_fn, sample_boundary_reflected,
                                 sample_domain)
 from ..rollout.sde import StoppedRolloutConfig, stopped_rollout
 from ._chunk import run_training
+from .elliptic import STOPPED_ROLLOUT_MODES
+from .hjb import DK_MIN_PATHS, check_rollout_mode
 
 
 def hat_function(x):
@@ -48,7 +50,7 @@ class _LambdaShiftedProblem:
         self.T = None  # elliptic h signature
         self.sigma_struct = problem.sigma_struct
         # forward the transposed-coefficient protocol (base.py) so the
-        # dk stopped rollout can run the eigen domain leg K-in-lanes
+        # dk stopped rollout can run the eigen domain leg in (d, K) layout
         if getattr(problem, "supports_transposed", False):
             self.b_T = problem.b_T
             self.h_T = lambda xT, y, zT: problem.h_T(xT, y, zT) + lam * y
@@ -80,8 +82,7 @@ class EigenSolver:
                  hat_weight=1.0, adaptive_forward_process=False,
                  detach_forward=True, print_every=100, verbose=True,
                  value_net=None, remat=None, mesh=None, steps_per_call="auto",
-                 rng_impl="threefry", layout="auto", rollout_mode="scan",
-                 fused_tile=None, fused_unroll=None, fused_rng=None):
+                 rng_impl="threefry", layout="auto", rollout_mode="scan"):
         self.problem = problem
         self.name = name
         self.date = date.today().strftime("%Y-%m-%d")
@@ -112,14 +113,9 @@ class EigenSolver:
         # records the engine, explicit dk warns on fallback)
         self.rng_impl = rng_impl
         self.layout = layout
-        # rollout_mode='fused_train': the eigen domain leg (a diffusion
-        # loss with the lambda-shifted h) as one Pallas kernel per
-        # direction; lambda rides the leaves tuple so its gradient flows
-        # through the in-kernel VJP (cf. EllipticSolver.rollout_mode).
-        self.rollout_mode = rollout_mode
-        self.fused_tile = fused_tile
-        self.fused_unroll = fused_unroll
-        self.fused_rng = fused_rng
+        self.rollout_mode = check_rollout_mode(rollout_mode,
+                                               STOPPED_ROLLOUT_MODES)
+        self.resolved_rollout_mode = "scan"
         key = jax.random.PRNGKey(seed)
         k_net, k_lam, self._train_key = jax.random.split(key, 3)
         if rng_impl != "threefry":
@@ -156,43 +152,9 @@ class EigenSolver:
     def _v_fn(self, params):
         return lambda X: self.V_net.apply(params["V"], X)[:, 0]
 
-    # fused-kernel gating reuses EllipticSolver's resolution: the eigen
-    # domain leg IS the diffusion loss (with the lambda-shifted h)
-    loss_method = "diffusion"
-    _fused_needs_xt = False
-
-    def _probe_params(self):
-        return self.params["V"]
-
     from .elliptic import EllipticSolver as _Ell
-    _resolve_fused = _Ell._resolve_fused
-    _build_fused_run = _Ell._build_fused_run
     _shard_T = _Ell._shard_T
-    _fused_call = _Ell._fused_call
-    _fused_v_l2 = _Ell._fused_v_l2
     del _Ell
-
-    def _terms_math_T(self):
-        """terms_math for the fused eigen kernel: (V, Z = sigma^T grad V,
-        h + lambda V) in column layout — lambda is read off the leaves so
-        d(loss)/d(lambda) flows through the in-kernel VJP."""
-        from ..ansatz.transposed import transposed_apply
-        sig = self.problem.sigma_struct
-        net = self.V_net
-        problem = self.problem
-        treedef = jax.tree.structure(self.params)
-
-        def terms(leaves, XT, t_row):
-            prm = jax.tree.unflatten(treedef, list(leaves))
-            lam = jax.tree.leaves(prm["lam"])[0].reshape(1,)
-            v_of_xT = lambda xT: transposed_apply(net, prm["V"], xT)[0, :]
-            V, pull = jax.vjp(v_of_xT, XT)
-            (gradXT,) = pull(jnp.ones_like(V))
-            ZT = sig.apply_T_cols(gradXT)
-            hv = problem.h_T(XT, V, ZT) + lam * V
-            return V.reshape(1, -1), ZT, hv.reshape(1, -1)
-
-        return terms
 
     def lam(self, params=None):
         params = self.params if params is None else params
@@ -210,14 +172,11 @@ class EigenSolver:
             N=self.N, delta_t=self.delta_t,
             adaptive_forward=self.adaptive_forward_process,
             detach_forward=self.detach_forward, remat=self.remat)
-        use_fused = self._resolve_fused()
-        if use_fused:
-            fused_run = self._build_fused_run()
-        # layout='auto' (default): dk at K >= 1024, the measured
-        # lane-occupancy crossover (cf. EllipticSolver._resolve_dk)
+        # layout='auto' (default): dk at K >= DK_MIN_PATHS (cf.
+        # EllipticSolver._resolve_dk)
         want_dk = (self.layout == "dk"
-                   or (self.layout == "auto" and self.K >= 1024))
-        use_dk = ((not use_fused) and want_dk
+                   or (self.layout == "auto" and self.K >= DK_MIN_PATHS))
+        use_dk = (want_dk
                   and getattr(problem, "supports_transposed", False))
         if use_dk:
             from ..ansatz.transposed import transposed_apply
@@ -274,15 +233,6 @@ class EigenSolver:
 
             X0 = constrain_batch(sample_domain(kd, geom, K, d), self.mesh)
             phi_0 = v_fn(X0)
-
-            if use_fused:
-                fo = self._fused_call(fused_run, params, X0,
-                                      jnp.zeros((K,)), kr)
-                dom_l = jnp.mean((v_fn(fo.XT.T) - phi_0 - fo.Y) ** 2)
-                loss = loss + a0 * dom_l
-                aux["domain"] = dom_l
-                aux["V_L2"] = jnp.mean(self._fused_v_l2(fo.v_l2))
-                return loss, aux
 
             shifted = _LambdaShiftedProblem(problem, lam)
 
@@ -464,7 +414,7 @@ class EigenSolver:
         se_R = float(np.hypot(s * se_f, se_c) / (s - 1.0))
         return lam_R, se_R
 
-    # -- persistence (orbax; mirrors solver.py:313-332) --------------------
+    # -- persistence (mirrors solver.py:313-332) --------------------------
     def save_networks(self, out_dir="output"):
         import os
         from ..utils.checkpoint import save_params

@@ -1,5 +1,5 @@
-"""Elliptic boundary-value solver (TPU-native rebuild of
-``EllipticSolver``, solver.py:560-931).
+"""Elliptic boundary-value solver (JAX rebuild of ``EllipticSolver``,
+solver.py:560-931).
 
 One jitted step per iteration: boundary + domain sampling, the stopped
 Euler-Maruyama rollout with Z = sigma^T grad V per step (second-order
@@ -27,6 +27,10 @@ from ..rollout.sampling import inside_fn, sample_boundary, sample_domain
 from ..rollout.sde import (StoppedRolloutConfig, stopped_rollout,
                            stopped_rollout_dk)
 from ._chunk import run_training
+from .hjb import DK_MIN_PATHS, check_rollout_mode
+
+# the stopped-family solvers have one engine, the lax.scan rollout
+STOPPED_ROLLOUT_MODES = ("scan",)
 
 
 def _unbiased_var(x):
@@ -57,8 +61,7 @@ class EllipticSolver:
                  variance_moment_split=False, full_hessian=False,
                  uniform_square=False, value_net=None, remat=None,
                  mesh=None, steps_per_call="auto", rng_impl="threefry",
-                 layout="auto", rollout_mode="scan", fused_tile=None,
-                 fused_unroll=None, fused_rng=None):
+                 layout="auto", rollout_mode="scan"):
         self.problem = problem
         self.name = name
         self.date = date.today().strftime("%Y-%m-%d")
@@ -105,29 +108,16 @@ class EllipticSolver:
         self.remat = (N > 512) if remat is None else remat
 
         # rng_impl='rbg' swaps the in-rollout noise / sampling draws for
-        # XLA's RngBitGenerator (cf. HJBSolver rng_impl: threefry bit
-        # generation is a first-order VPU cost at large K); layout='dk'
-        # carries the stopped-rollout path state transposed (d, K) so the
-        # per-step value-net vjp matmuls run K-in-lanes (rollout/sde.py:
-        # stopped_rollout_dk; falls back to 'kd' with a warning when the
-        # problem lacks the transposed protocol or the net lacks a
-        # transposed apply).  Param init always uses threefry.
+        # XLA's RngBitGenerator (cf. HJBSolver rng_impl); layout='dk'
+        # carries the stopped-rollout path state transposed (d, K)
+        # (rollout/sde.py: stopped_rollout_dk; falls back to 'kd' with a
+        # warning when the problem lacks the transposed protocol or the
+        # net lacks a transposed apply).  Param init always uses threefry.
         self.rng_impl = rng_impl
         self.layout = layout
-        # rollout_mode='fused_train' runs the stopped rollout as ONE
-        # Pallas kernel per direction (rollout/kernels.py:
-        # make_fused_stopped_train_rollout — the backward replays the
-        # forward, grad-of-grad in-kernel).  Requirements: TPU backend,
-        # loss_method in ('diffusion', 'BSDE') (the non-recursive-Y
-        # family), detach_forward, the problem's transposed protocol and
-        # a transposed-apply value net; falls back to the scan with a
-        # warning otherwise (resolved_rollout_mode records the engine).
-        # Noise is the in-kernel TPU PRNG — statistically, not bitwise,
-        # the scan's stream.
-        self.rollout_mode = rollout_mode
-        self.fused_tile = fused_tile
-        self.fused_unroll = fused_unroll
-        self.fused_rng = fused_rng
+        self.rollout_mode = check_rollout_mode(rollout_mode,
+                                               STOPPED_ROLLOUT_MODES)
+        self.resolved_rollout_mode = "scan"
         key = jax.random.PRNGKey(seed)
         k_net, self._train_key = jax.random.split(key)
         if rng_impl != "threefry":
@@ -176,7 +166,7 @@ class EllipticSolver:
         """Column-layout (d, K) variant of :meth:`_value_grad_fn` for the
         transposed stopped rollout (layout='dk'): the vjp runs through
         ansatz/transposed.py so every matmul — forward and pullback —
-        keeps the path axis in the TPU lane dimension."""
+        keeps the path axis as the minor (column) dimension."""
         from ..ansatz.transposed import transposed_apply
         sig = self.problem.sigma_struct
         net = self.V_net
@@ -189,103 +179,6 @@ class EllipticSolver:
 
         return fn
 
-    def _terms_math_T(self):
-        """terms_math for the fused stopped kernel
-        (rollout/kernels.py: make_fused_stopped_train_rollout): (V,
-        Z = sigma^T grad V, h) at the pre-step state in column layout,
-        h with y_in_h = V (the non-recursive losses, solver.py:765-770).
-        """
-        from ..ansatz.transposed import transposed_apply
-        from ..rollout.sde import _call_h_T
-        sig = self.problem.sigma_struct
-        net = self.V_net
-        problem = self.problem
-        treedef = jax.tree.structure(self.params)
-
-        def terms(leaves, XT, t_row):
-            prm = jax.tree.unflatten(treedef, list(leaves))
-            v_of_xT = lambda xT: transposed_apply(net, prm, xT)[0, :]
-            V, pull = jax.vjp(v_of_xT, XT)
-            (gradXT,) = pull(jnp.ones_like(V))
-            ZT = sig.apply_T_cols(gradXT)
-            hv = _call_h_T(problem, t_row[0, :], XT, V, ZT)
-            return V.reshape(1, -1), ZT, hv.reshape(1, -1)
-
-        return terms
-
-    _fused_needs_xt = False   # elliptic value net consumes x only
-
-    def _probe_params(self):
-        """Value-net param tree for the transposed-apply capability probe
-        (EigenSolver nests the net under 'V')."""
-        return self.params
-
-    def _resolve_fused(self):
-        """Gate rollout_mode='fused_train' -> usable, or fall back to the
-        scan with a one-time warning (cf. HJBSolver's resolution;
-        resolved_rollout_mode records what actually runs)."""
-        from ..ansatz.transposed import transposed_apply
-        ok = (self.rollout_mode == "fused_train"
-              and self.loss_method in ("diffusion", "BSDE")
-              and self.detach_forward
-              and not getattr(self, "solve_linear_L2_projection", False)
-              and getattr(self.problem, "supports_transposed", False)
-              and (self.mesh is None
-                   or ("dp" in self.mesh.axis_names
-                       and self.K % self.mesh.shape["dp"] == 0))
-              and jax.default_backend() == "tpu")
-        if ok:
-            d_in = self.d + 1 if self._fused_needs_xt else self.d
-            try:
-                jax.eval_shape(lambda p: transposed_apply(
-                    self.V_net, p, jnp.zeros((d_in, 4))),
-                    self._probe_params())
-            except NotImplementedError:
-                ok = False
-        self.resolved_rollout_mode = "fused_train" if ok else "scan"
-        if (self.rollout_mode == "fused_train" and not ok
-                and not getattr(self, "_fused_fallback_warned", False)):
-            import warnings
-            self._fused_fallback_warned = True
-            warnings.warn(
-                "rollout_mode='fused_train' fell back to 'scan' (needs a "
-                "TPU backend, loss_method 'diffusion'/'BSDE', "
-                "detach_forward, the problem's transposed-coefficient "
-                "protocol and a transposed-apply value net)", stacklevel=3)
-        return ok
-
-    def _build_fused_run(self, time_stopping=False):
-        """Construct the fused stopped-rollout kernel (and remember
-        whether the in-kernel v_ref diagnostic is active)."""
-        from ..rollout.kernels import (
-            jaxpr_mosaic_safe, make_fused_stopped_train_rollout,
-            make_fused_stopped_train_rollout_sharded)
-        from ..rollout.sampling import inside_fn_cols
-        problem = self.problem
-        leaves_ex = tuple(jax.tree.leaves(self.params))
-        v_ref_T = (getattr(problem, "v_ref_T", None)
-                   if not time_stopping else None)
-        if v_ref_T is not None and not jaxpr_mosaic_safe(
-                v_ref_T, jax.ShapeDtypeStruct((self.d, 8), jnp.float32)):
-            v_ref_T = None   # FD-table refs gather: skip in-kernel diag
-        self._fused_v_ref = v_ref_T is not None
-        fkw = dict(inside_fn_T=inside_fn_cols(problem.geometry),
-                   adaptive_forward=self.adaptive_forward_process,
-                   time_stopping=time_stopping, v_ref_T=v_ref_T)
-        if self.fused_tile is not None:
-            fkw["tile"] = int(self.fused_tile)
-        if self.fused_unroll is not None:
-            fkw["unroll"] = int(self.fused_unroll)
-        if self.fused_rng is not None:
-            fkw["rng"] = str(self.fused_rng)
-        if self.mesh is not None:
-            return make_fused_stopped_train_rollout_sharded(
-                problem, self._terms_math_T(), leaves_ex, self.K, self.N,
-                self.delta_t, mesh=self.mesh, **fkw)
-        return make_fused_stopped_train_rollout(
-            problem, self._terms_math_T(), leaves_ex, self.K, self.N,
-            self.delta_t, **fkw)
-
     def _shard_T(self, X0T):
         """Keep transposed path state path-sharded (P(None, 'dp')) under
         a mesh: without the constraint GSPMD may re-shard/gather X0.T
@@ -296,48 +189,15 @@ class EllipticSolver:
                 X0T, NamedSharding(self.mesh, P(None, "dp")))
         return X0T
 
-    def _fused_call(self, fused_run, params, X0, t0, kr):
-        """Shared fused-kernel call prologue — transpose + dp constraint
-        + leaf flattening + f32 seed — one definition for the elliptic/
-        general/eigen steps (code review r5: was duplicated 4x)."""
-        X0T = self._shard_T(X0.T)
-        leaves = tuple(jax.tree.leaves(params))
-        seed_f = jax.random.randint(
-            kr, (), 0, 2**23 - 1).astype(jnp.float32)
-        return fused_run(leaves, X0T, t0, seed_f)
-
-    def _fused_v_l2(self, v_l2_acc):
-        """V_L2 accumulator -> metric: NaN sentinel when the in-kernel
-        v_ref diagnostic was DROPPED (Mosaic-unsafe v_ref_T) on a problem
-        that does have a reference — a 0.0 there would read as perfect
-        accuracy (code review r5; shared by elliptic and eigen)."""
-        no_ref = not getattr(self, "_fused_v_ref", False)
-        if no_ref and self.problem.has_v_ref:
-            return jnp.full_like(v_l2_acc, jnp.nan)
-        return v_l2_acc
-
-    def _fused_to_stopped_out(self, fo, Y0, K):
-        """FusedStoppedOut -> StoppedRolloutOut view for the shared loss
-        assembly (Y_0 added outside the kernel; no step losses in the
-        fused family)."""
-        from ..rollout.sde import StoppedRolloutOut
-        return StoppedRolloutOut(
-            X=fo.XT.T, Y=Y0.astype(jnp.float32) + fo.Y, t=fo.t,
-            stopped=fo.stopped > 0.5, hitting=fo.hitting,
-            v_l2=self._fused_v_l2(fo.v_l2),
-            step_loss=jnp.float32(0.0),
-            active_count=jnp.sum(fo.adv_steps))
-
     def _resolve_dk(self, needs_xt: bool = False):
         """Resolve layout='dk' -> usable transposed pieces, or fall back
         to 'kd' with a one-time warning (cf. HJBSolver resolution).
         layout='auto' (default) picks dk when the gates pass AND
-        K >= 1024 — the measured lane-occupancy crossover (RESULTS
-        round-4 stopped-layout table: 1.2-2x at K >= 8192, a wash or a
-        loss at the reference's K=200); explicit 'kd'/'dk' force."""
+        K >= DK_MIN_PATHS (hjb.py: set on another accelerator, not
+        measured on the GPU); explicit 'kd'/'dk' force."""
         from ..ansatz.transposed import transposed_apply
         want_dk = (self.layout == "dk"
-                   or (self.layout == "auto" and self.K >= 1024))
+                   or (self.layout == "auto" and self.K >= DK_MIN_PATHS))
         use_dk = (want_dk
                   and getattr(self.problem, "supports_transposed", False)
                   and self.loss_method != "PINN")
@@ -392,10 +252,7 @@ class EllipticSolver:
         K, Kb, d = self.K, self.K_boundary, self.d
         a0, a1 = self.alpha[0], self.alpha[1]
         v_ref = problem.v_ref if hasattr(problem, "v_ref") else None
-        use_fused = self._resolve_fused()
-        if use_fused:
-            fused_run = self._build_fused_run()
-        use_dk = (not use_fused) and self._resolve_dk()
+        use_dk = self._resolve_dk()
         if use_dk:
             from ..rollout.sampling import inside_fn_cols
             vg_fn_T = self._value_grad_fn_T()
@@ -433,11 +290,7 @@ class EllipticSolver:
                 Y0 = jnp.zeros((K,))
             Y0 = constrain_batch(Y0, self.mesh)
 
-            if use_fused:
-                fo = self._fused_call(fused_run, params, X0,
-                                      jnp.zeros((K,)), kr)
-                out = self._fused_to_stopped_out(fo, Y0, K)
-            elif use_dk:
+            if use_dk:
                 X0T = self._shard_T(X0.T)
                 out = stopped_rollout_dk(cfg, problem, vg_fn_T, params,
                                          X0T, Y0, jnp.zeros((K,)), kr,
@@ -537,7 +390,7 @@ class EllipticSolver:
 
     # ------------------------------------------------------------------
 
-    # -- persistence (orbax; mirrors solver.py:313-332) --------------------
+    # -- persistence (mirrors solver.py:313-332) --------------------------
     def save_networks(self, out_dir="output"):
         import os
         from ..utils.checkpoint import save_params

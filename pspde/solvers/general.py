@@ -1,5 +1,5 @@
-"""General space-time parabolic solver (TPU-native rebuild of
-``GeneralSolver``, solver.py:934-1323).
+"""General space-time parabolic solver (JAX rebuild of ``GeneralSolver``,
+solver.py:934-1323).
 
 Like EllipticSolver but the value net takes (x, t) (solver.py:980), start
 points are sampled uniformly in space AND t ~ U(0, T) (solver.py:1078),
@@ -24,7 +24,8 @@ from ..rollout.sampling import inside_fn, sample_boundary, sample_domain
 from ..rollout.sde import (StoppedRolloutConfig, stopped_rollout,
                            stopped_rollout_dk)
 from ._chunk import run_training
-from .elliptic import masked_mean
+from .elliptic import STOPPED_ROLLOUT_MODES, masked_mean
+from .hjb import check_rollout_mode
 
 
 class GeneralSolver:
@@ -44,8 +45,7 @@ class GeneralSolver:
                  boundary_loss=True, full_hessian=False,
                  uniform_square=False, solve_linear_L2_projection=False,
                  value_net=None, remat=None, mesh=None, steps_per_call="auto",
-                 rng_impl="threefry", layout="auto", rollout_mode="scan",
-                 fused_tile=None, fused_unroll=None, fused_rng=None):
+                 rng_impl="threefry", layout="auto", rollout_mode="scan"):
         self.problem = problem
         self.name = name
         self.date = date.today().strftime("%Y-%m-%d")
@@ -86,13 +86,9 @@ class GeneralSolver:
         # input assembled as columns + a t row)
         self.rng_impl = rng_impl
         self.layout = layout
-        # rollout_mode='fused_train': one Pallas kernel per direction for
-        # the stopped space-time rollout (time_stopping in-kernel); same
-        # gates as EllipticSolver plus not solve_linear_L2_projection.
-        self.rollout_mode = rollout_mode
-        self.fused_tile = fused_tile
-        self.fused_unroll = fused_unroll
-        self.fused_rng = fused_rng
+        self.rollout_mode = check_rollout_mode(rollout_mode,
+                                               STOPPED_ROLLOUT_MODES)
+        self.resolved_rollout_mode = "scan"
         key = jax.random.PRNGKey(seed)
         k_net, self._train_key = jax.random.split(key)
         if rng_impl != "threefry":
@@ -170,8 +166,8 @@ class GeneralSolver:
         """Column-layout variant of :meth:`_value_grad_fn` (layout='dk',
         rollout/sde.py: stopped_rollout_dk): the (x, t) net input is
         assembled as (d+1, K) columns with t as the last row and the vjp
-        runs through ansatz/transposed.py, keeping the path axis in the
-        TPU lane dimension."""
+        runs through ansatz/transposed.py, keeping the path axis as the
+        minor (column) dimension."""
         from ..ansatz.transposed import transposed_apply
         sig = self.problem.sigma_struct
         net = self.V_net
@@ -196,45 +192,8 @@ class GeneralSolver:
     # EllipticSolver (the value net here takes a d+1 input)
     from .elliptic import EllipticSolver as _Ell
     _resolve_dk = _Ell._resolve_dk
-    _resolve_fused = _Ell._resolve_fused
-    _build_fused_run = _Ell._build_fused_run
-    _fused_to_stopped_out = _Ell._fused_to_stopped_out
-    _fused_v_l2 = _Ell._fused_v_l2
     _shard_T = _Ell._shard_T
-    _fused_call = _Ell._fused_call
-    # the transposed-apply capability probe (round-5 fix: missing this
-    # alias made fused_train crash with AttributeError on a REAL TPU —
-    # the CPU suite never reaches the probe because the backend gate
-    # short-circuits first; covered by the TPU breadth script)
-    _probe_params = _Ell._probe_params
     del _Ell
-    _fused_needs_xt = True   # value net consumes (x, t)
-
-    def _terms_math_T(self):
-        """Space-time terms_math for the fused stopped kernel: the (x, t)
-        net input is assembled in column layout as [XT; t_row] (t LAST,
-        matching the row-layout concat in _value_grad_fn); h is the
-        parabolic h_T(t, xT, y, zT) with y_in_h = V."""
-        from ..ansatz.transposed import transposed_apply
-        sig = self.problem.sigma_struct
-        net = self.V_net
-        problem = self.problem
-        treedef = jax.tree.structure(self.params)
-
-        def terms(leaves, XT, t_row):
-            prm = jax.tree.unflatten(treedef, list(leaves))
-
-            def v_of_xT(xT):
-                xtT = jnp.concatenate([xT, t_row], axis=0)
-                return transposed_apply(net, prm, xtT)[0, :]
-
-            V, pull = jax.vjp(v_of_xT, XT)
-            (gradXT,) = pull(jnp.ones_like(V))
-            ZT = sig.apply_T_cols(gradXT)
-            hv = problem.h_T(t_row[0, :], XT, V, ZT)
-            return V.reshape(1, -1), ZT, hv.reshape(1, -1)
-
-        return terms
 
     def _rollout_cfg(self):
         lm = self.loss_method
@@ -274,10 +233,7 @@ class GeneralSolver:
         a0, a1, a2 = self.alpha
         T = self.T
         dt = self.delta_t
-        use_fused = self._resolve_fused()
-        if use_fused:
-            fused_run = self._build_fused_run(time_stopping=True)
-        use_dk = (not use_fused) and self._resolve_dk(needs_xt=True)
+        use_dk = self._resolve_dk(needs_xt=True)
         if use_dk:
             from ..rollout.sampling import inside_fn_cols
             vg_fn_T = self._value_grad_fn_T()
@@ -315,10 +271,7 @@ class GeneralSolver:
                 Y0 = jnp.zeros((K,))
             Y0 = constrain_batch(Y0, self.mesh)
 
-            if use_fused:
-                fo = self._fused_call(fused_run, params, X0, t0, kr)
-                out = self._fused_to_stopped_out(fo, Y0, K)
-            elif use_dk:
+            if use_dk:
                 X0T = self._shard_T(X0.T)
                 out = stopped_rollout_dk(cfg, problem, vg_fn_T, params,
                                          X0T, Y0, t0, kr, ins_T)
@@ -435,7 +388,7 @@ class GeneralSolver:
 
     # ------------------------------------------------------------------
 
-    # -- persistence (orbax; mirrors solver.py:313-332) --------------------
+    # -- persistence (mirrors solver.py:313-332) --------------------------
     def save_networks(self, out_dir="output"):
         import os
         from ..utils.checkpoint import save_params

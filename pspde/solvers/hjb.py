@@ -1,4 +1,4 @@
-"""HJB / parabolic path-space solver (TPU-native rebuild of ``Solver``,
+"""HJB / parabolic path-space solver (JAX rebuild of ``Solver``,
 solver.py:18-557).
 
 Differences from the reference by design (not capability):
@@ -31,9 +31,22 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from ..ansatz import DenseNet, ScalarParam, TanhMLP
 from ..losses.pathspace import (hjb_loss, log_variance_y0_losses)
 from ..rollout.sde import (HJBRolloutConfig, hjb_rollout,
-                           hjb_rollout_batched_grad, hjb_rollout_dk,
-                           hjb_rollout_fused)
+                           hjb_rollout_batched_grad, hjb_rollout_dk)
 from ._chunk import resolve_steps_per_call, run_training
+
+ROLLOUT_MODES = ("scan", "batched_grad")
+
+# layout='auto' switches the scan to the transposed dk layout at this path
+# count.  The threshold was set on another accelerator (where K >= 1024
+# filled its 128-wide vector lanes); it has not been measured on the GPU.
+DK_MIN_PATHS = 1024
+
+
+def check_rollout_mode(mode, valid=ROLLOUT_MODES):
+    if mode not in valid:
+        raise ValueError("rollout_mode=%r is not supported; valid modes: %s"
+                         % (mode, ", ".join(repr(m) for m in valid)))
+    return mode
 
 
 def init_stacked(module, key, n_copies: int, sample_in: jnp.ndarray):
@@ -52,7 +65,7 @@ class HJBSolver:
     """Drives a parabolic/HJB problem with the path-space loss zoo.
 
     Constructor kwargs mirror ``Solver.__init__`` (solver.py:20-25); the
-    ansatz can be overridden by passing a Flax module as ``control_net`` /
+    ansatz can be overridden by passing a module as ``control_net`` /
     ``value_net`` (replacing the reference's post-construction attribute
     mutation protocol, SURVEY.md section 5.6).
     """
@@ -71,8 +84,7 @@ class HJBSolver:
                  control_net=None, value_net=None, lr_y0=None,
                  remat=None, mesh=None, dtype=jnp.float32,
                  rollout_mode="scan", steps_per_call="auto",
-                 rng_impl="threefry", layout="auto", antithetic=False,
-                 fused_tile=None, fused_unroll=None, fused_rng=None):
+                 rng_impl="threefry", layout="auto", antithetic=False):
         self.problem = problem
         self.name = name
         self.date = date.today().strftime("%Y-%m-%d")
@@ -137,33 +149,19 @@ class HJBSolver:
         self.mesh = mesh
         self.steps_per_call = steps_per_call
         self.remat = (self.N > 512) if remat is None else remat
-        # 'scan' (default: lax.scan with optional remat), 'batched_grad'
+        # 'scan' (default: lax.scan with optional remat) or 'batched_grad'
         # (gradient-free forward + one flattened (N*K)-row differentiable
-        # control evaluation; requires detach_forward and y-free h — wins
-        # in dispatch-bound regimes, loses to scan+remat when HBM-bound),
-        # 'fused' (batched_grad with the forward path fused into one
-        # Pallas kernel — weights + path tile VMEM-resident, in-kernel TPU
-        # PRNG; additionally requires 'inner' control ansatz,
-        # state-independent sigma, fixed X_0, f32, single device), or
-        # 'fused_train' (forward AND backward each one Pallas kernel with
-        # the path tile transposed K-in-lanes in VMEM and zero per-step
-        # HBM traffic — rollout/kernels.py: make_fused_train_rollout;
-        # same requirements as 'fused' plus the problem's transposed-
-        # coefficient protocol and a transposed-apply-capable control net;
-        # unlike 'fused' it also runs under a dp mesh — the kernel is
-        # shard_mapped over the path axis with psum'd parameter
-        # gradients, kernels.py: make_fused_train_rollout_sharded)
-        self.rollout_mode = rollout_mode
-        # layout='dk' carries the scan path state transposed (d, K) so the
-        # hot matmuls run K-in-lanes (rollout/sde.py: hjb_rollout_dk;
-        # requires the problem's transposed-coefficient protocol, control
-        # mode, and a transposed-apply-capable net — silently falls back
-        # to 'kd' otherwise).  Combine with rng_impl='rbg' for the full
-        # measured speedup (neither alone moves the needle).  'auto'
-        # (default) picks dk exactly when those gates pass AND K >= 1024
-        # — the measured lane-occupancy crossover; below it the
-        # transposed matmuls pad worse than row-major (RESULTS round-4
-        # stopped-layout table + Allen-Cahn negative).
+        # control evaluation; requires detach_forward and y-free h, and
+        # falls back to the scan with a warning otherwise).  Any other
+        # mode raises.
+        self.rollout_mode = check_rollout_mode(rollout_mode)
+        # layout='dk' carries the scan path state transposed (d, K)
+        # (rollout/sde.py: hjb_rollout_dk; requires the problem's
+        # transposed-coefficient protocol, control mode, and a
+        # transposed-apply-capable net — falls back to 'kd' with a warning
+        # otherwise).  'auto' (default) picks dk when those gates pass AND
+        # K >= DK_MIN_PATHS, a threshold set on another accelerator and
+        # not measured on the GPU; explicit 'kd'/'dk' force.
         self.layout = layout
         # antithetic: simulate the K training paths as K/2 mirrored noise
         # pairs (xi, -xi) (no reference counterpart; see
@@ -174,46 +172,17 @@ class HJBSolver:
         # cancels exactly pairwise) — but HURTS variance-type losses
         # (log-variance grad variance +40%: correlated pairs degrade a
         # batch-variance estimator).  Use with relative_entropy /
-        # cross_entropy / moment; leave off for log-variance.  NOTE:
-        # 'fused_train' requires detach_forward, which relative_entropy
-        # cannot use (degenerate gradient, see the __init__ warning) —
-        # antithetic fused_train pairs with moment / cross_entropy.
-        # Scan rollouts mirror within the batch; 'fused_train' builds TWO
-        # kernels over K/2 paths with the SAME per-call seed and
-        # compile-time noise signs +1/-1 (kernels.py noise_sign) — the
-        # concatenated ensemble is exactly K/2 mirrored pairs, so the
-        # pair-averaged mean-loss estimator and its gradient cancellation
-        # carry over.  The serve-style 'fused' mode cannot mirror (its
-        # forward is consumed by the batched-grad assembly per tile).
-        if antithetic:
-            if K % 2:
-                raise ValueError("antithetic training needs even K")
-            if rollout_mode == "fused":
-                raise ValueError(
-                    "antithetic training is not supported with "
-                    "rollout_mode='fused' - use 'scan' or 'fused_train'")
+        # cross_entropy / moment; leave off for log-variance.  Rollouts
+        # mirror within the batch: paths (i, i + K/2) form the pairs.
+        if antithetic and K % 2:
+            raise ValueError("antithetic training needs even K")
         self.antithetic = antithetic
-        # fused-kernel tuning overrides (None = kernel defaults: tile 4096
-        # auto-capped by the d*tile*unroll scoped-VMEM calibration,
-        # unroll 2 for even N — rollout/kernels.py)
-        self.fused_tile = fused_tile
-        self.fused_unroll = fused_unroll
-        # fused_rng: in-kernel noise map.  None = the kernel default,
-        # which round 5 promoted to 'binom' (moment-matched popcount-
-        # binomial, kernels.py:_normals_from_bits_binom) after the
-        # 20k-iter equal-budget endpoint comparison came out equal-or-
-        # better on u_L2 AND IS error at 1.49x less wall-clock
-        # (experiments/proto_binom_longrun.py, RESULTS round 5); the
-        # erf_inv transform it replaces was ~48% of the fused forward's
-        # time (round 4).  'erfinv' restores exact normals.
-        self.fused_rng = fused_rng
 
         # -- ansatz ---------------------------------------------------------
         # rng_impl: 'threefry' (default; cross-backend reproducible,
         # checkpoint-stable key format) or 'rbg' (XLA RngBitGenerator for
-        # the in-rollout normal draws — measured 1.5x faster full train
-        # step on v5e at the bench config, since threefry bit generation
-        # alone is ~40% of the step; key DERIVATION stays threefry, so
+        # the in-rollout normal draws: cheaper bit generation, its speed
+        # on the GPU not measured yet; key DERIVATION stays threefry, so
         # fold_in/split semantics are unchanged).  Param init always uses
         # threefry so parameters are identical across rng_impl settings.
         self.rng_impl = rng_impl
@@ -393,101 +362,14 @@ class HJBSolver:
             and cfg.repa_phase is None and not cfg.burgers_drift
             and getattr(problem, "h_is_y_free", False))
         use_batched_grad = self.rollout_mode == "batched_grad" and path_grad_ok
-        use_fused = (
-            self.rollout_mode == "fused" and path_grad_ok
-            and self.approx_method == "control"
-            and self.time_approx == "inner"
-            and not self.random_X_0
-            and dtype == jnp.float32
-            and self.mesh is None
-            and jax.default_backend() == "tpu")
-        use_fused_train = (
-            self.rollout_mode == "fused_train" and path_grad_ok
-            and not cfg.reparametrization
-            and self.approx_method == "control"
-            and self.time_approx == "inner"
-            and not self.random_X_0
-            and dtype == jnp.float32
-            and (self.mesh is None
-                 or ("dp" in self.mesh.axis_names
-                     # antithetic halves K before sharding (K_f = K//2
-                     # below), so the divisibility gate must test the
-                     # halved count or the sharded builder raises
-                     and (K // 2 if self.antithetic else K)
-                     % self.mesh.shape["dp"] == 0))
-            and getattr(problem, "supports_transposed", False)
-            and (not self.u_l2_error_flag
-                 or hasattr(problem, "u_ref_table"))
-            and jax.default_backend() == "tpu")
         rollout = (hjb_rollout_batched_grad if use_batched_grad
                    else hjb_rollout)
-        if (self.rollout_mode in ("fused", "fused_train")
-                and not (use_fused or use_fused_train)):
-            rollout = (hjb_rollout_batched_grad if path_grad_ok
-                       else hjb_rollout)
 
-        if use_fused_train:
-            from ..ansatz.transposed import make_transposed_apply
-            from ..rollout.kernels import make_fused_train_rollout
-            try:
-                leaves_ex, z_apply_T = make_transposed_apply(
-                    self.z_net, self.params["z"])
-            except NotImplementedError:
-                use_fused_train = False
-                rollout = (hjb_rollout_batched_grad if path_grad_ok
-                           else hjb_rollout)
-        if use_fused_train:
-            u_tab = None
-            if self.u_l2_error_flag:
-                u_tab = problem.u_ref_table(
-                    np.arange(self.N) * self.delta_t)
-            fused_kw = dict(
-                adaptive_forward=cfg.adaptive_forward,
-                accumulate_kl=cfg.accumulate_kl,
-                kl_ito_term=cfg.kl_ito_term, u_tab=u_tab)
-            if self.fused_tile is not None:
-                fused_kw["tile"] = int(self.fused_tile)
-            if self.fused_unroll is not None:
-                fused_kw["unroll"] = int(self.fused_unroll)
-            if self.fused_rng is not None:
-                fused_kw["rng"] = str(self.fused_rng)
-            K_f = K // 2 if self.antithetic else K
-            if self.mesh is not None:
-                from ..rollout.kernels import (
-                    make_fused_train_rollout_sharded)
-                mk = lambda **kw2: make_fused_train_rollout_sharded(
-                    problem, z_apply_T, leaves_ex, K_f, self.N,
-                    self.delta_t, mesh=self.mesh, **fused_kw, **kw2)
-            else:
-                mk = lambda **kw2: make_fused_train_rollout(
-                    problem, z_apply_T, leaves_ex, K_f, self.N,
-                    self.delta_t, **fused_kw, **kw2)
-            fused_train_run = mk()
-            # antithetic pair: same seed, mirrored noise (kernels.py
-            # noise_sign); outputs are concatenated so paths (i, i+K/2)
-            # form the (xi, -xi) pair
-            fused_train_run_neg = (mk(noise_sign=-1.0)
-                                   if self.antithetic else None)
-
-        if use_fused:
-            z_treedef = jax.tree.structure(self.params["z"])
-            z_net = self.z_net
-
-            if cfg.adaptive_forward:
-                def u_apply(leaves_t, tX):
-                    prm = jax.tree.unflatten(z_treedef, list(leaves_t))
-                    return -z_net.apply(prm, tX)
-            else:
-                def u_apply(leaves_t, tX):
-                    return jnp.zeros((tX.shape[0], d), jnp.float32)
-
-        # transposed (K-in-lanes) scan layout.  layout='auto' (default)
-        # resolves to dk at K >= 1024 — the measured crossover where the
-        # path axis fills the TPU lanes (RESULTS round-3/4 tables:
-        # dk buys nothing at the reference's K<=200 but 1.2-2x with
-        # rng_impl='rbg' once K ~ 1k+); explicit 'kd'/'dk' force.
+        # transposed (d, K) scan layout: layout='auto' (default) resolves
+        # to dk at K >= DK_MIN_PATHS (see its note); explicit 'kd'/'dk'
+        # force.
         want_dk = (self.layout == "dk"
-                   or (self.layout == "auto" and self.K >= 1024))
+                   or (self.layout == "auto" and self.K >= DK_MIN_PATHS))
         use_dk = (
             want_dk and self.rollout_mode == "scan"
             and self.approx_method == "control"
@@ -509,32 +391,23 @@ class HJBSolver:
             except NotImplementedError:
                 use_dk = False
 
-        # -- surface the resolved engine (VERDICT r3 item 8): opt-in perf
-        # modes gate on many conditions and used to fall back silently, so
-        # a user benchmarking 'fused_train' could measure the scan with no
-        # signal.  Record what actually runs and warn once on a downgrade.
-        self.resolved_rollout_mode = (
-            "fused_train" if use_fused_train
-            else "fused" if use_fused
-            else "batched_grad" if (use_batched_grad
-                                    or rollout is hjb_rollout_batched_grad)
-            else "scan")
+        # -- surface the resolved engine: opt-in perf modes gate on many
+        # conditions, so record what actually runs and warn once on a
+        # downgrade (a benchmark of 'batched_grad' must not silently time
+        # the scan).
+        self.resolved_rollout_mode = ("batched_grad" if use_batched_grad
+                                      else "scan")
         self.resolved_layout = "dk" if use_dk else "kd"
         if not getattr(self, "_fallback_warned", False):
             import warnings
             msgs = []
-            if (self.rollout_mode in ("fused", "fused_train",
-                                      "batched_grad")
-                    and self.resolved_rollout_mode != self.rollout_mode):
+            if self.resolved_rollout_mode != self.rollout_mode:
                 msgs.append(
                     "rollout_mode=%r fell back to %r (a gate failed: see "
                     "the rollout_mode docstring in HJBSolver.__init__ for "
                     "the requirements)"
                     % (self.rollout_mode, self.resolved_rollout_mode))
-            if (self.layout == "dk" and self.resolved_layout != "dk"
-                    and self.resolved_rollout_mode == "scan"):
-                # (the fused kernels are K-in-lanes internally, so a
-                # resolved fused mode already delivers the dk layout)
+            if self.layout == "dk" and self.resolved_layout != "dk":
                 msgs.append(
                     "layout='dk' fell back to 'kd' (needs rollout_mode="
                     "'scan', control mode, the problem's transposed-"
@@ -578,25 +451,6 @@ class HJBSolver:
                                       X0T, Y0, kr, u_tab=u_tab_dk)
             X0 = init_X(kx)
             Y0 = self._shard(y_init(params, X0))
-            if use_fused_train:
-                from ..rollout.sde import HJBRolloutOut
-                leaves = tuple(jax.tree.leaves(params["z"]))
-                seed_f = jax.random.randint(
-                    kr, (), 0, 2**23 - 1).astype(jnp.float32)
-                out = fused_train_run(leaves, seed_f)
-                if fused_train_run_neg is not None:
-                    o2 = fused_train_run_neg(leaves, seed_f)
-                    out = jax.tree.map(
-                        lambda a, b: jnp.concatenate(
-                            [a, b], axis=a.ndim - 1), out, o2)
-                Y = Y0.astype(jnp.float32) + out.Y
-                return HJBRolloutOut(out.XT.T, Y, out.Z_sum, out.u_l2,
-                                     jnp.zeros_like(out.Y))
-            if use_fused:
-                leaves = tuple(jax.tree.leaves(params["z"]))
-                return hjb_rollout_fused(cfg, problem, control_fn, params,
-                                         u_apply, leaves, X0, Y0, kr,
-                                         u_ref=u_ref)
             return rollout(cfg, problem, control_fn, params, X0, Y0, kr,
                            u_ref=u_ref)
 
@@ -658,6 +512,7 @@ class HJBSolver:
             metrics.update(_extra_metrics(params, aux["X"]))
             return params, opt_state, metrics
 
+        step.loss_fn = loss_fn  # (params, key) -> (loss, aux), for checks
         return step
 
     def _get_step(self, phase: int):

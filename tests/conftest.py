@@ -20,13 +20,26 @@ jax.config.update("jax_platforms", "cpu")
 
 # Most of the suite's wall-clock is XLA compiles of per-test jitted
 # steps; persist them so re-runs load instead of recompiling (entries
-# are keyed by platform, so TPU bench entries in the same dir do not
-# collide).  Tests that re-point the cache restore it themselves.
+# are keyed by platform, so GPU entries in the same dir do not collide).
+# Tests that re-point the cache restore it themselves.
 from pspde.utils import enable_compilation_cache
 
 enable_compilation_cache(min_compile_seconds=0.5)
 
 import pytest
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; skips on the CPU (the "
+        "checks that need the card live in chip_smoke.py)")
+
+
+@pytest.fixture(autouse=True)
+def _skip_gpu_tests_off_gpu(request):
+    if (request.node.get_closest_marker("gpu")
+            and jax.default_backend() != "gpu"):
+        pytest.skip("needs an NVIDIA GPU; this run uses the CPU")
 
 
 @pytest.fixture

@@ -3,8 +3,96 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pspde import ansatz
+
+_EYE3 = jnp.eye(3)
+
+
+def _skip_layout(d_in, arch, d_out):
+    """Documented concat-skip layout: Dense_i maps the running features
+    (d_in + sum(arch[:i])) to the next width."""
+    out, w = {}, d_in
+    for i, width in enumerate([*arch, d_out]):
+        out[f"Dense_{i}/kernel"] = (w, width)
+        out[f"Dense_{i}/bias"] = (width,)
+        w += width
+    return out
+
+
+# name -> (module, input width, documented {path: shape}, random init)
+ANSATZ_CASES = {
+    "Affine": (ansatz.Affine(d_out=3), 4,
+               {"A": (3, 4), "b": (1, 3)}, False),
+    "BatchNormMLP": (ansatz.BatchNormMLP(d_out=2, hidden=5), 3,
+                     {"bn_scale_0": (3,), "bn_bias_0": (3,),
+                      "Dense_0/kernel": (3, 5), "bn_scale_1": (5,),
+                      "bn_bias_1": (5,), "Dense_1/kernel": (5, 2),
+                      "bn_scale_2": (2,), "bn_bias_2": (2,)}, True),
+    "ConstantVector": (ansatz.ConstantVector(d=4), 4, {"c": (4,)}, True),
+    "DenseNet": (ansatz.DenseNet(d_out=2, arch=(5, 6)), 3,
+                 _skip_layout(3, (5, 6), 2), True),
+    "DenseNetRelu": (ansatz.DenseNetRelu(d_out=1, arch=(4, 4)), 3,
+                     _skip_layout(3, (4, 4), 1), True),
+    "DenseNetTanh": (ansatz.DenseNetTanh(d_out=2, arch=(5, 6)), 3,
+                     _skip_layout(3, (5, 6), 2), True),
+    "DenseNetTanh2": (ansatz.DenseNetTanh2(d_out=2, arch=(5,)), 3,
+                      _skip_layout(3, (5,), 2), True),
+    "LinearLQ": (ansatz.LinearLQ(B=_EYE3, Q=_EYE3), 3, {"F": (3, 3)}, True),
+    "LinearLQTime": (ansatz.LinearLQTime(B=_EYE3, Q=_EYE3, T=1.0,
+                                         degree=2), 4,
+                     {"F": (3, 3, 3)}, False),
+    "ReluMLP1d": (ansatz.ReluMLP1d(hidden=16), 1,
+                  {"Dense_0/kernel": (1, 16), "Dense_0/bias": (16,),
+                   "Dense_1/kernel": (16, 1), "Dense_1/bias": (1,)}, True),
+    "ScalarParam": (ansatz.ScalarParam(initial=None), 1, {"Y_0": (1,)},
+                    True),
+    "Sines": (ansatz.Sines(M=5), 1, {"alpha": (5, 1)}, True),
+    "TanhMLP": (ansatz.TanhMLP(d_out=2, hidden=(4, 5)), 3,
+                {"Dense_0/kernel": (3, 4), "Dense_0/bias": (4,),
+                 "Dense_1/kernel": (4, 5), "Dense_1/bias": (5,),
+                 "Dense_2/kernel": (5, 2), "Dense_2/bias": (2,)}, True),
+}
+
+
+def test_ansatz_cases_cover_every_class():
+    exported = {n for n in ansatz.__all__
+                if isinstance(getattr(ansatz, n), type)
+                and issubclass(getattr(ansatz, n), ansatz.Module)
+                and getattr(ansatz, n) is not ansatz.Module
+                and getattr(ansatz, n).__name__ == n}
+    assert exported == set(ANSATZ_CASES)
+
+
+@pytest.mark.parametrize("name", sorted(ANSATZ_CASES))
+def test_ansatz_class_contract(name):
+    """init is deterministic in the key and yields the documented
+    ``{"params": tree}`` layout; apply under jit + grad is finite with
+    the right output shape."""
+    net, d_in, layout, random_init = ANSATZ_CASES[name]
+    x = jax.random.normal(jax.random.PRNGKey(1), (6, d_in))
+    k0, k1 = jax.random.PRNGKey(0), jax.random.PRNGKey(7)
+    p0, p0b, p1 = net.init(k0, x), net.init(k0, x), net.init(k1, x)
+    assert set(p0) == {"params"}
+    got = {"/".join(str(k.key) for k in path): tuple(leaf.shape)
+           for path, leaf in jax.tree.flatten_with_path(p0["params"])[0]}
+    assert got == layout
+    for a, b in zip(jax.tree.leaves(p0), jax.tree.leaves(p0b)):
+        np.testing.assert_array_equal(a, b)
+    if random_init:
+        assert any(not np.array_equal(a, b) for a, b in
+                   zip(jax.tree.leaves(p0), jax.tree.leaves(p1)))
+
+    out = jax.jit(net.apply)(p0, x)
+    expect = {"ScalarParam": (6,), "ReluMLP1d": (6, 1), "Sines": (6, 1),
+              "LinearLQ": (6, 3), "LinearLQTime": (6, 3),
+              "ConstantVector": (6, 4)}.get(name)
+    d_out = getattr(net, "d_out", None)
+    assert out.shape == (expect or (6, d_out))
+    g = jax.jit(jax.grad(lambda p: jnp.sum(net.apply(p, x) ** 2)))(p0)
+    assert jax.tree.structure(g) == jax.tree.structure(p0)
+    assert all(np.isfinite(np.asarray(v)).all() for v in jax.tree.leaves(g))
 
 
 def _count(params):
@@ -130,29 +218,25 @@ def test_densenet_relu(key):
     assert float(net.apply(neg, jnp.ones((1, d_in)))[0, 0]) < 0
 
 
-def test_transposed_apply_matches_row_major():
-    """transposed_apply == .apply for the hot-loop modules (the fused
-    training kernel evaluates nets in (d_in, K) column layout)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from pspde.ansatz import DenseNet, DenseNetTanh, DenseNetTanh2, TanhMLP
-    from pspde.ansatz.transposed import (make_transposed_apply,
-                                         transposed_apply)
+@pytest.mark.parametrize("modules", [
+    (ansatz.TanhMLP(d_out=5),),
+    (ansatz.DenseNet(d_out=5, arch=(9, 4)),
+     ansatz.DenseNet(d_out=5, arch=(9, 4), output_relu=True)),
+    (ansatz.DenseNetTanh(d_out=3, arch=(8, 8)),),
+    (ansatz.DenseNetTanh2(d_out=2, arch=(6,)),),
+], ids=["TanhMLP", "DenseNet", "DenseNetTanh", "DenseNetTanh2"])
+def test_transposed_apply_matches_row_major(modules):
+    """transposed_apply == .apply for the hot-loop modules (the dk-layout
+    rollouts evaluate nets in (d_in, K) column layout)."""
+    from pspde.ansatz.transposed import transposed_apply
 
     key = jax.random.PRNGKey(0)
     x = jax.random.normal(key, (37, 7))
-    for module in (TanhMLP(d_out=5), DenseNet(d_out=5, arch=(9, 4)),
-                   DenseNet(d_out=5, arch=(9, 4), output_relu=True),
-                   DenseNetTanh(d_out=3, arch=(8, 8)),
-                   DenseNetTanh2(d_out=2, arch=(6,))):
+    for module in modules:
         params = module.init(key, x)
         ref = module.apply(params, x)
         out = transposed_apply(module, params, x.T).T
         np.testing.assert_allclose(out, ref, rtol=2e-6, atol=2e-6)
-        leaves, apply_T = make_transposed_apply(module, params)
-        out2 = apply_T(leaves, x.T).T
-        np.testing.assert_allclose(out2, ref, rtol=2e-6, atol=2e-6)
 
 
 def test_linear_lq_time_represents_riccati_control():
@@ -198,7 +282,7 @@ def test_control_test_error_same_state_unbiased():
     """control_test_error (eval/test_error.py) evaluates u_hat and u* at
     the SAME X_n, so the exact Riccati control reads ~0 where the
     reference-semantics u_L2 diagnostic has an O(sqrt(dt)) floor
-    (measured 0.165 at dt=0.01, RESULTS.md round 4)."""
+    (measured 0.165 at dt=0.01, round 4)."""
     import jax
     import jax.numpy as jnp
     import numpy as np

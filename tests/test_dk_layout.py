@@ -1,4 +1,4 @@
-"""Transposed (K-in-lanes) scan rollout == row-major rollout.
+"""Transposed (d, K) scan rollout == row-major rollout.
 
 ``hjb_rollout_dk`` (rollout/sde.py) carries the path state as (d, K)
 columns; with ``noise_layout='kd'`` it consumes the exact fold_in noise

@@ -85,16 +85,19 @@ def test_estimate_lambda_richardson_cancels_dt_bias():
     O(sqrt(dt)) (discrete boundary stopping), and the sqrt-order
     Richardson combination must land closer to 0 than the coarse-dt
     readout (no training involved)."""
-    import flax.linen as nn
     import jax
+    import jax.numpy as jnp
+
+    from pspde.ansatz import Module
 
     p = FokkerPlanckEigen(d=2)
 
-    class TrueV(nn.Module):
-        @nn.compact
-        def __call__(self, x):
-            dummy = self.param("dummy", nn.initializers.zeros, (1,))
-            return p.v_ref(x)[:, None] + 0.0 * dummy
+    class TrueV(Module):
+        def _init(self, key, x):
+            return {"dummy": jnp.zeros((1,))}
+
+        def _apply(self, params, x):
+            return p.v_ref(x)[:, None] + 0.0 * params["dummy"]
 
     s = EigenSolver(p, "fp-true-v", L=1, K=64, K_boundary=16, N=10,
                     delta_t=1.6e-2, value_net=TrueV(), verbose=False)

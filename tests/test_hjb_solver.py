@@ -151,18 +151,23 @@ def test_rng_impl_rbg_converges():
 
 
 def test_perf_mode_fallback_is_surfaced():
-    """Opt-in perf modes must not downgrade silently (VERDICT r3 item 8):
-    the solver records the resolved engine and warns once when an
-    explicit rollout_mode / layout opt-in falls back."""
+    """Perf modes must not downgrade silently: a removed rollout_mode
+    raises and names the valid modes, the solver records the resolved
+    engine, and it warns once when an explicit rollout_mode / layout
+    opt-in falls back."""
     import warnings
 
-    # fused_train gates on a TPU backend -> falls back on the CPU mesh
-    s = _solver("log-variance", L=1, rollout_mode="fused_train",
+    with pytest.raises(ValueError, match="'scan', 'batched_grad'"):
+        _solver("log-variance", L=1, rollout_mode="fused_train",
                 detach_forward=True, problem=LLGC(d=2, T=0.5))
+
+    # batched_grad needs detach_forward -> falls back to the scan
+    s = _solver("log-variance", L=1, rollout_mode="batched_grad",
+                detach_forward=False, problem=LLGC(d=2, T=0.5))
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
         s._build_step(0)
-    assert s.resolved_rollout_mode == "batched_grad"  # path_grad_ok holds
+    assert s.resolved_rollout_mode == "scan"
     assert any("fell back" in str(x.message) for x in w), w
     # ... and only once
     with warnings.catch_warnings(record=True) as w2:

@@ -5,6 +5,7 @@ path-ensemble simulation, double-well control plots."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from pspde.problems import (LLGC, Committor_DoubleWell, DoubleWell,
                             DoubleWellGeneral)
@@ -120,46 +121,38 @@ def test_enable_compilation_cache(tmp_path):
                               prev_size)
 
 
-def test_roofline_vpu_work_count():
-    """count_vpu_work (utils/roofline.py) counts elementwise element-ops
-    with transcendental weights, routes dots to mxu_flops, reductions to
-    reduce, and recurses through pjit — checked on a hand-countable
-    function."""
-    from pspde.utils.roofline import count_vpu_work
-
-    def f(x, w):
-        y = x * 2.0 + 1.0          # 2 elem ops on (8, 16)
-        z = jnp.tanh(y)            # weight 8 on (8, 16)
-        s = jnp.sum(z, axis=0)     # reduce of 128
-        m = z @ w                  # dot: 2*8*16*4 flops
-        return s, m
-
-    jx = jax.make_jaxpr(f)(jnp.zeros((8, 16)), jnp.zeros((16, 4)))
-    out = count_vpu_work(jx)
-    assert out["elem"] == 2 * 128 + 8 * 128, out
-    assert out["reduce"] == 128, out
-    assert out["mxu_flops"] == 2 * 8 * 16 * 4, out
-    assert not out["unknown"], out
+@pytest.fixture
+def restore_cache_config():
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    prev = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in prev.items():
+        jax.config.update(n, v)
 
 
-def test_roofline_fused_train_model_shape():
-    """fused_train_vpu_roofline with injected machine rates returns a
-    finite ceiling and the documented work decomposition (no unknown
-    primitives in the d=100 HJB step jaxprs)."""
-    from pspde.problems import LLGC
-    from pspde.solvers import HJBSolver
-    from pspde.utils.roofline import fused_train_vpu_roofline
+def test_compile_cache_env_var_wins(tmp_path, monkeypatch,
+                                    restore_cache_config):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the only cache directory:
+    an explicit path is ignored and not created."""
+    import os
+    from pspde.utils import enable_compilation_cache
+    env_dir = str(tmp_path / "from_env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    d = enable_compilation_cache(str(tmp_path / "from_arg"))
+    assert d == env_dir and os.path.isdir(env_dir)
+    assert jax.config.jax_compilation_cache_dir == env_dir
+    assert not os.path.exists(tmp_path / "from_arg")
 
-    p = LLGC(d=100, T=1.0)
-    s = HJBSolver("rl", p, lr=1e-3, L=1, K=64, delta_t=1.0 / 32,
-                  time_approx="inner", loss_method="log-variance",
-                  detach_forward=True, learn_Y_0=True, verbose=False,
-                  early_stopping_time=None)
-    r = fused_train_vpu_roofline(p, s, fma_rate=4e12, normals_rate=2e12)
-    assert r["normals_per_path_step"] == 200.0
-    assert 1e3 < r["elem_ops_per_path_step"] < 1e5
-    assert not r["unknown_prims"], r["unknown_prims"]
-    # ceiling formula: 1 / (normals/Rn + elem/(Rf/2))
-    t = 200.0 / 2e12 + r["elem_ops_per_path_step"] / 2e12
-    np.testing.assert_allclose(r["roofline_path_steps_per_sec"], 1.0 / t,
-                               rtol=1e-6)
+
+def test_compile_cache_default_is_repo_dir(monkeypatch,
+                                           restore_cache_config):
+    """Without the variable the cache goes to <repo>/.jax_cache."""
+    import os
+    from pspde.utils import enable_compilation_cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = enable_compilation_cache()
+    assert d == os.path.join(repo, ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == d

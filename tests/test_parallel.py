@@ -136,34 +136,22 @@ def test_hlo_no_path_sized_collectives_elliptic():
     _assert_param_sized_collectives_only(hlo, K, d, 8, s.params)
 
 
-def test_hlo_no_path_sized_collectives_fused_sharded():
-    """shard_mapped fused training kernel: the custom-VJP transpose may
-    psum parameter gradients, nothing path-sized."""
-    from pspde.ansatz.transposed import make_transposed_apply
-    from pspde.losses.pathspace import log_variance_loss
-    from pspde.rollout.kernels import make_fused_train_rollout_sharded
-    mesh = make_mesh(n_dp=8)
-    d, N, K_local = 8, 8, 256
-    K = K_local * 8
-    p = LLGC(d=d, T=1.0)
-    s = HJBSolver("hlo-fused", p, lr=1e-2, L=1, K=K_local, delta_t=0.125,
+def test_is_scan_mesh_matches_unsharded():
+    """importance_sampling(mesh=...): dp sharding is placement only —
+    the same key gives bitwise-equal statistics."""
+    from pspde.eval import importance_sampling
+    p = LLGC(d=5, T=1.0)
+    s = HJBSolver("is-mesh", p, lr=1e-2, L=1, K=16, delta_t=0.125,
                   time_approx="inner", loss_method="log-variance",
                   detach_forward=True, learn_Y_0=True, verbose=False,
                   early_stopping_time=None)
-    leaves_ex, z_apply_T = make_transposed_apply(s.z_net, s.params["z"])
-    noise = jnp.zeros((N, d, K_local), jnp.float32)
-    run = make_fused_train_rollout_sharded(
-        p, z_apply_T, leaves_ex, K, N, 0.125, mesh=mesh,
-        adaptive_forward=True, tile=8, interpret=True, host_noise=noise)
-    leaves = tuple(jax.tree.leaves(s.params["z"]))
-
-    def loss(lv):
-        o = run(lv, jnp.float32(0))
-        return log_variance_loss(o.Y, p.g(o.XT.T))
-
-    hlo = jax.jit(jax.grad(loss)).lower(leaves).compile().as_text()
-    _assert_param_sized_collectives_only(hlo, K, d, 8,
-                                         {"z": s.params["z"]})
+    mesh = make_mesh(n_dp=8)
+    key = jax.random.PRNGKey(11)
+    a = importance_sampling(p, s, K=64, simulate_naive=True,
+                            delta_t=0.05, key=key)
+    b = importance_sampling(p, s, K=64, simulate_naive=True,
+                            delta_t=0.05, key=key, mesh=mesh)
+    np.testing.assert_allclose(a, b, rtol=1e-6)
 
 
 def test_hlo_no_path_sized_collectives_eigen_dk():

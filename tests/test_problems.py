@@ -161,3 +161,38 @@ def test_eigen_problems_satisfy_eigen_equation(key):
         target = -p.lambda_true * v
         np.testing.assert_allclose(np.asarray(resid), np.asarray(target),
                                    atol=5e-3)
+
+
+def _make(name):
+    cls = P.REGISTRY[name]
+    return cls(d=2, T=1.0) if name == "LQGC" else cls()
+
+
+TRANSPOSED = [n for n in P.REGISTRY
+              if getattr(_make(n), "supports_transposed", False)]
+
+
+def test_transposed_registry_count():
+    assert len(TRANSPOSED) == 12, TRANSPOSED
+
+
+@pytest.mark.parametrize("name", TRANSPOSED)
+def test_transposed_protocol_matches_row_major(name):
+    """b_T / h_T / v_ref_T (column layout, base.py protocol) are the
+    row-major b / h / v_ref applied to x.T, transposed."""
+    from pspde.rollout.sde import _call_h, _call_h_T
+    p = _make(name)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(3), 3)
+    x = 0.5 * jax.random.normal(k1, (K, p.d))
+    y = jax.random.normal(k2, (K,))
+    z = jax.random.normal(k3, (K, p.d))
+    t = jnp.float32(0.25)
+    np.testing.assert_allclose(np.asarray(p.b_T(x.T)),
+                               np.asarray(p.b(x)).T, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(_call_h_T(p, t, x.T, y, z.T)),
+                               np.asarray(_call_h(p, t, x, y, z)),
+                               rtol=1e-5, atol=1e-6)
+    if hasattr(p, "v_ref_T"):
+        np.testing.assert_allclose(np.asarray(p.v_ref_T(x.T)),
+                                   np.asarray(p.v_ref(x)),
+                                   rtol=1e-5, atol=1e-6)

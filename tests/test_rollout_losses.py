@@ -202,7 +202,7 @@ def test_antithetic_training_rollout():
     and non-adaptive forward the pairwise sums X_i + X_{i+K/2} all equal
     the same deterministic flow; (2) the relative-entropy loss variance
     across keys collapses (the KL Ito term is odd in the noise); (3) the
-    even-K and fused-mode guards raise."""
+    even-K and rollout-mode guards raise."""
     import dataclasses
 
     import numpy as np
@@ -250,10 +250,8 @@ def test_antithetic_training_rollout():
     with pytest.raises(ValueError, match="even K"):
         HJBSolver("bad", p, L=1, K=255, delta_t=0.05, verbose=False,
                   early_stopping_time=None, antithetic=True)
-    # 'fused' (serve-style) still cannot mirror; 'fused_train' now can
-    # (two kernels, same seed, noise_sign +/-1 — see
-    # test_fused_training.test_antithetic_fused_train_gate_and_shapes)
-    with pytest.raises(ValueError, match="fused"):
+    # the removed 'fused' mode raises, naming the valid modes
+    with pytest.raises(ValueError, match="'scan', 'batched_grad'"):
         HJBSolver("bad", p, L=1, K=256, delta_t=0.05, verbose=False,
                   early_stopping_time=None, antithetic=True,
                   rollout_mode="fused")
